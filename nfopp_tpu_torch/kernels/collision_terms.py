@@ -5,6 +5,11 @@ CUDA counterpart of `nfopp_tpu/experimental/pallas/collision_terms.py`:
 `_fwd_kernel` and `_bwd_kernel` behind `make_collision_terms`' custom VJP
 become two kernels behind one `torch.autograd.Function`; source in
 `csrc/collision_terms.cu`.
+
+Under compute_dtype="bfloat16" the kernels compute what the solver's plain
+path computes, `onf_apply`'s casts and their autograd (xy and the encoding
+weights rounded too, each cotangent rounded where it passes back through a
+cast); their launches count under "collision_fwd_bf16" / "collision_bwd_bf16".
 """
 from __future__ import annotations
 
@@ -15,7 +20,7 @@ import torch
 from ..models.onf import ONFConfig, onf_apply
 from ..ops.losses import softplus_beta
 from . import build
-from .common import LAUNCHES, check_points, check_tensor, net_args, stream, use_plain
+from .common import LAUNCHES, check_points, check_tensor, is_bf16, net_args, stream, use_plain
 
 __all__ = ["collision_terms", "collision_terms_plain", "collision_fwd", "collision_bwd"]
 
@@ -25,7 +30,8 @@ def collision_terms_plain(
     beta: float,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version, differentiable by autograd:
-    (sum_m softplus_beta(z), sum_m mu * tanh(z)) per problem, each [B]."""
+    (sum_m softplus_beta(z), sum_m mu * tanh(z)) per problem, each [B]. Under
+    bf16 its autograd is the bf16 kernels' yardstick."""
     logits = onf_apply(params, positions, config)[..., 0]
     return (
         torch.sum(softplus_beta(logits, beta), dim=1),
@@ -37,14 +43,16 @@ def collision_fwd(params, positions, multipliers, config: ONFConfig, beta: float
     """Forward kernel on checked CUDA tensors: [B, 2] = (sum softplus, sum mu * tanh)."""
     batch, m, dim = positions.shape
     net = net_args(params, config, batch, positions.device)
+    bf16 = is_bf16(config)
+    name = "collision_fwd_bf16" if bf16 else "collision_fwd"
     out = torch.empty((batch, 2), dtype=torch.float32, device=positions.device)
     build.check(
         build.load_library().nf_collision_fwd(
             ctypes.byref(net), positions.data_ptr(), multipliers.data_ptr(), batch, m, dim,
-            float(beta), out.data_ptr(), stream()),
-        "collision_fwd",
+            float(beta), int(bf16), out.data_ptr(), stream()),
+        name,
     )
-    LAUNCHES["collision_fwd"] += 1
+    LAUNCHES[name] += 1
     return out
 
 
@@ -54,16 +62,18 @@ def collision_bwd(params, positions, multipliers, g, config: ONFConfig, beta: fl
     batch, m, dim = positions.shape
     net = net_args(params, config, batch, positions.device)
     check_tensor("cotangents", g, (batch, 2), positions.device)
+    bf16 = is_bf16(config)
+    name = "collision_bwd_bf16" if bf16 else "collision_bwd"
     d_positions = torch.empty_like(positions)
     d_multipliers = torch.empty_like(multipliers)
     build.check(
         build.load_library().nf_collision_bwd(
             ctypes.byref(net), positions.data_ptr(), multipliers.data_ptr(), g.data_ptr(),
-            batch, m, dim, float(beta), d_positions.data_ptr(), d_multipliers.data_ptr(),
-            stream()),
-        "collision_bwd",
+            batch, m, dim, float(beta), int(bf16), d_positions.data_ptr(),
+            d_multipliers.data_ptr(), stream()),
+        name,
     )
-    LAUNCHES["collision_bwd"] += 1
+    LAUNCHES[name] += 1
     return d_positions, d_multipliers
 
 

@@ -1,5 +1,5 @@
-"""What the three kernel wrappers share: the dispatch rule, the launch
-counters, the checks on their inputs and the C view of one batch of fields.
+"""What the kernel wrappers share: the dispatch rule, the launch counters,
+the checks on their inputs and the C view of one batch of fields.
 
 Dispatch rule: a wrapper given CPU tensors computes its plain PyTorch
 version; given CUDA tensors it launches its kernel or raises. There is no
@@ -14,12 +14,20 @@ import torch
 from ..models.onf import ONFConfig
 
 __all__ = [
-    "LAUNCHES", "reset_launches", "NetArgs", "net_args", "use_plain", "check_points",
-    "check_tensor", "stream",
+    "LAUNCHES", "reset_launches", "NetArgs", "net_args", "use_plain", "is_bf16",
+    "check_problems_per_program", "check_points", "check_tensor", "stream",
 ]
 
-# launches of each kernel, counted by its wrapper where it launches it
-LAUNCHES = {"onf_forward": 0, "field_grad": 0, "collision_fwd": 0, "collision_bwd": 0}
+# launches of each kernel, counted by its wrapper where it launches it; the
+# collision kernels' bf16 mode counts under its own names
+LAUNCHES = {
+    "onf_forward": 0, "field_grad": 0, "collision_fwd": 0, "collision_bwd": 0,
+    "onf_multi": 0, "field_grad_multi": 0, "collision_fwd_bf16": 0, "collision_bwd_bf16": 0,
+}
+
+# wrappers whose kernels are f32 only: the production solver's field passes,
+# whose bf16 mode (onf_apply's casts) is a later item of ROADMAP.md
+F32_ONLY = ("onf_forward", "field_grad")
 
 # what one CTA holds (csrc/onf_common.cuh): one hidden column per thread
 # slot, at most two feature columns per thread slot
@@ -32,6 +40,13 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+def is_bf16(config: ONFConfig) -> bool:
+    """True for compute_dtype 'bfloat16', False for 'float32'; raises otherwise."""
+    if config.compute_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"unsupported compute_dtype {config.compute_dtype!r}")
+    return config.compute_dtype == "bfloat16"
+
+
 def use_plain(x: torch.Tensor, config: ONFConfig, name: str) -> bool:
     """True for CPU tensors (plain version); False for CUDA tensors the
     kernel takes; raises for anything else."""
@@ -39,12 +54,19 @@ def use_plain(x: torch.Tensor, config: ONFConfig, name: str) -> bool:
         return True
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
-    if config.compute_dtype != "float32":
+    if is_bf16(config) and name in F32_ONLY:
         raise NotImplementedError(
-            f"{name}: compute_dtype={config.compute_dtype!r} on CUDA belongs to the "
-            "bf16 slice (field_grad_multi / onf_multi kernels); these kernels are f32"
+            f"{name}: compute_dtype='bfloat16' on CUDA is not ported for the production "
+            "solver's field passes (ROADMAP.md section 1, item 18); the batch-explicit "
+            "solve (experimental.ExperimentalConstrainedSolver.run_batch) runs bf16"
         )
     return False
+
+
+def check_problems_per_program(batch: int, problems_per_program: int) -> None:
+    """The TPU kernels' P-problems-per-program contract: B % P == 0."""
+    if problems_per_program < 1 or batch % problems_per_program != 0:
+        raise ValueError(f"batch {batch} not divisible by {problems_per_program}")
 
 
 def check_points(x: torch.Tensor, config: ONFConfig, name: str) -> tuple[int, int, int]:

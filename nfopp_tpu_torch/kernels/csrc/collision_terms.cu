@@ -10,17 +10,27 @@
 //
 // Bound on this card: f32 FMAs. Forward ~32.7k and forward + input backward
 // ~65k multiply-adds per pose: at B=256 x M=99, ~1.7 and ~3.3 GFLOP, about 25
-// and 49 us at 67 TFLOP/s, against ~34 MB of weights (~10 us at 3.35 TB/s).
+// and 49 us at 67 TFLOP/s, against ~34 MB of weights (~10 us at 3.35 TB/s)
+// (H100 SXM data sheet rates). In bf16 the operations take ~2 and ~3 us at
+// 989 TFLOP/s, and the bytes bound them.
 // Design: one CTA per problem with the field in shared memory (onf_common.cuh).
 // The backward recomputes the forward of each tile, as the TPU kernel does,
 // then walks back through the head, both ReLU layers (W^T products read the
 // odd-strided weight rows without bank conflicts) and the encodings. The
 // per-problem sums are reduced in a fixed order, so results repeat bit for
 // bit from run to run.
+//
+// Two instantiations: F32 (kernels 3a/3b), and BF16_APPLY, the trajectory
+// step's collision terms under compute_dtype="bfloat16". The solver computes
+// them through models/onf.py::onf_apply, whose casts round xy and the
+// encoding weights too, and whose autograd rounds each cotangent once where
+// it passes back through a cast (d h2, d h1, each of the two d feature terms,
+// d xy); BF16_APPLY does the same.
 #include "onf_common.cuh"
 
 using namespace nf;
 
+template <int P>
 __global__ void __launch_bounds__(THREADS, 1)
 collision_fwd_kernel(const float* __restrict__ x, const float* __restrict__ mult, int M, int dim,
                      NetArgs n, float beta, float* __restrict__ out) {
@@ -28,12 +38,12 @@ collision_fwd_kernel(const float* __restrict__ x, const float* __restrict__ mult
   float* s = reinterpret_cast<float*>(smem_f4);
   const Layout L = make_layout(n, 0);
   const int b = blockIdx.x, lane = threadIdx.x % 32;
-  load_weights(n, L, b, s);
+  load_weights<P>(n, L, b, s);
   x += (size_t)b * M * dim;
   mult += (size_t)b * M;
   float sum_soft = 0.f, sum_mt = 0.f;  // held by thread 0
   for (int row0 = 0; row0 < M; row0 += TM) {
-    forward_tile(x, M, dim, row0, n, L, s);
+    forward_tile<P>(x, M, dim, row0, n, L, s);
     if (threadIdx.x < 32) {
       const int row = row0 + lane;
       float soft = 0.f, mt = 0.f;
@@ -55,6 +65,7 @@ collision_fwd_kernel(const float* __restrict__ x, const float* __restrict__ mult
   }
 }
 
+template <int P>
 __global__ void __launch_bounds__(THREADS, 1)
 collision_bwd_kernel(const float* __restrict__ x, const float* __restrict__ mult,
                      const float* __restrict__ g, int M, int dim, NetArgs n, float beta,
@@ -66,14 +77,14 @@ collision_bwd_kernel(const float* __restrict__ x, const float* __restrict__ mult
   const int warp = tid / 32, lane = tid % 32;
   const int cs = tid % CSLOTS, r0 = (tid / CSLOTS) * RPT;
   const int F = n.F, FEAT = L.FEAT;
-  load_weights(n, L, b, s);
+  load_weights<P>(n, L, b, s);
   x += (size_t)b * M * dim;
   mult += (size_t)b * M;
   dx += (size_t)b * M * dim;
   dmult += (size_t)b * M;
   const float g1 = g[2 * b], g2 = g[2 * b + 1];
   for (int row0 = 0; row0 < M; row0 += TM) {
-    forward_tile(x, M, dim, row0, n, L, s);
+    forward_tile<P>(x, M, dim, row0, n, L, s);
     // d logits per row; d multipliers
     if (tid < TM) {
       const int row = row0 + tid;
@@ -88,15 +99,15 @@ collision_bwd_kernel(const float* __restrict__ x, const float* __restrict__ mult
       s[L.g + tid] = gz;
     }
     __syncthreads();
-    head_backprop(n, L, s);  // h2 := d pre2
+    head_backprop<P>(n, L, s);  // h2 := d pre2
     __syncthreads();
-    relu_backprop(s + L.h2, n.HID, s + L.w2, L.ldw2, n.HID, s + L.h1);  // h1 := d pre1
+    relu_backprop<P>(s + L.h2, n.HID, s + L.w2, L.ldw2, n.HID, s + L.h1);  // h1 := d pre1
     __syncthreads();
     // d features -> d pre-activations (x the angle frequency), over the
     // feature tile, which the backward no longer reads
     for (int k = cs; k < FEAT; k += CSLOTS) {
       float acc[RPT];
-      feature_grad(n, L, s, k, acc);
+      feature_grad<P>(n, L, s, k, acc);
 #pragma unroll
       for (int q = 0; q < RPT; ++q) {
         float f;
@@ -105,8 +116,9 @@ collision_bwd_kernel(const float* __restrict__ x, const float* __restrict__ mult
       }
     }
     __syncthreads();
-    // per row: x, y through the encoding weights (/ sigma), theta through
-    // the angle phases
+    // per row: x, y through the encoding weights (the cotangent of the
+    // rounded xy under BF16_APPLY, then / sigma), theta through the angle
+    // phases
     for (int r = warp; r < TM; r += WARPS) {
       float ax = 0.f, ay = 0.f, at = 0.f;
       for (int k = lane; k < FEAT; k += 32) {
@@ -118,8 +130,8 @@ collision_bwd_kernel(const float* __restrict__ x, const float* __restrict__ mult
           at += d;
         }
       }
-      ax = warp_sum(ax);
-      ay = warp_sum(ay);
+      ax = rnd_enc<P>(warp_sum(ax));
+      ay = rnd_enc<P>(warp_sum(ay));
       at = warp_sum(at);
       const int row = row0 + r;
       if (lane == 0 && row < M) {
@@ -133,25 +145,41 @@ collision_bwd_kernel(const float* __restrict__ x, const float* __restrict__ mult
   }
 }
 
-extern "C" int nf_collision_fwd(const NetArgs* net, const float* x, const float* mult, int B,
-                                int M, int dim, float beta, float* out, void* stream) {
+template <int P>
+int launch_collision_fwd(const NetArgs* net, const float* x, const float* mult, int B, int M,
+                         int dim, float beta, float* out, void* stream) {
   const Layout L = make_layout(*net, 0);
   size_t bytes;
-  cudaError_t err = prepare_launch(collision_fwd_kernel, L, &bytes);
+  cudaError_t err = prepare_launch(collision_fwd_kernel<P>, L, &bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  collision_fwd_kernel<<<B, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
+  collision_fwd_kernel<P><<<B, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
       x, mult, M, dim, *net, beta, out);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int nf_collision_bwd(const NetArgs* net, const float* x, const float* mult,
-                                const float* g, int B, int M, int dim, float beta, float* dx,
-                                float* dmult, void* stream) {
+template <int P>
+int launch_collision_bwd(const NetArgs* net, const float* x, const float* mult, const float* g,
+                         int B, int M, int dim, float beta, float* dx, float* dmult,
+                         void* stream) {
   const Layout L = make_layout(*net, 0);
   size_t bytes;
-  cudaError_t err = prepare_launch(collision_bwd_kernel, L, &bytes);
+  cudaError_t err = prepare_launch(collision_bwd_kernel<P>, L, &bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  collision_bwd_kernel<<<B, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
+  collision_bwd_kernel<P><<<B, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
       x, mult, g, M, dim, *net, beta, dx, dmult);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int nf_collision_fwd(const NetArgs* net, const float* x, const float* mult, int B,
+                                int M, int dim, float beta, int bf16, float* out, void* stream) {
+  return bf16 ? launch_collision_fwd<BF16_APPLY>(net, x, mult, B, M, dim, beta, out, stream)
+              : launch_collision_fwd<F32>(net, x, mult, B, M, dim, beta, out, stream);
+}
+
+extern "C" int nf_collision_bwd(const NetArgs* net, const float* x, const float* mult,
+                                const float* g, int B, int M, int dim, float beta, int bf16,
+                                float* dx, float* dmult, void* stream) {
+  return bf16 ? launch_collision_bwd<BF16_APPLY>(net, x, mult, g, B, M, dim, beta, dx, dmult,
+                                                 stream)
+              : launch_collision_bwd<F32>(net, x, mult, g, B, M, dim, beta, dx, dmult, stream);
 }

@@ -1,6 +1,7 @@
-// Shared pieces of the ONF kernels (onf_forward.cu, field_grad.cu,
-// collision_terms.cu): one CTA per problem holds that problem's whole field
-// in shared memory and walks the problem's points in tiles of TM rows.
+// Shared pieces of the ONF kernels (onf_forward.cu, onf_multi.cu,
+// field_grad.cuh, collision_terms.cu): one CTA per problem holds that
+// problem's whole field in shared memory and walks the problem's points in
+// tiles of TM rows.
 //
 // Shared-memory picture for the full-width field (F=200 Fourier + A=20
 // angle features, hidden 100):
@@ -12,8 +13,26 @@
 // the CUDA cores: thread (column slot c, row group) keeps 16 row sums in
 // registers, reads its weight column once per k and the activation rows as
 // broadcast float4 loads.
+//
+// Operand rounding (template parameter P of every kernel). A bf16 mode rounds
+// a product's operands to bf16 and accumulates in f32; since bf16 x bf16 is
+// exact in f32, rounding the weights as they are loaded into shared memory
+// and the activations as they are written into the tiles, then running the
+// same f32 FMA loops, is the arithmetic of a bf16 product with f32
+// accumulation. Values stay f32 in shared memory.
+//   F32         no rounding (kernels 1-3, and kernels 4-5 in f32);
+//   BF16_MULTI  the TPU kernels onf_multi.py / field_grad_multi.py: encoding
+//               layer in f32, every MLP and head product's operands rounded
+//               (weights, features, h1, h2, and in the backward the
+//               cotangents g, dh2, dh1 where they enter a product);
+//   BF16_APPLY  models/onf.py::onf_apply's casts (the collision kernels' bf16
+//               mode): as BF16_MULTI but xy and the encoding weights rounded
+//               too; its backward is the autograd of those casts, which
+//               rounds each cotangent once, where it passes back through a
+//               cast, after its f32 product.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -29,6 +48,27 @@ constexpr int RPT = TM / RGROUPS;          // rows per thread in the products
 constexpr int MAX_SMEM = 232448;           // bytes a CTA may use on sm_90
 static_assert(TM == 32, "row-wise steps put one row on each lane of a warp");
 static_assert(RPT % 4 == 0, "rows are read as float4");
+
+constexpr int F32 = 0;
+constexpr int BF16_MULTI = 1;
+constexpr int BF16_APPLY = 2;
+
+// v rounded to the nearest bf16 (ties to even) under the bf16 modes.
+template <int P>
+__device__ __forceinline__ float rnd(float v) {
+  if constexpr (P == F32) {
+    return v;
+  } else {
+    return __bfloat162float(__float2bfloat16_rn(v));
+  }
+}
+
+// The encoding layer's operands (xy and the encoding weights) are rounded
+// only under BF16_APPLY.
+template <int P>
+__device__ __forceinline__ float rnd_enc(float v) {
+  return P == BF16_APPLY ? rnd<P>(v) : v;
+}
 
 // One batch of fields: every pointer is [B, ...] contiguous, f32.
 struct NetArgs {
@@ -89,34 +129,40 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// dst[i] = src[i], rounded to bf16 when `R` is a bf16 mode.
+template <int R>
 __device__ inline void copy_to_shared(float* dst, const float* src, int count) {
-  for (int i = threadIdx.x; i < count; i += THREADS) dst[i] = src[i];
+  for (int i = threadIdx.x; i < count; i += THREADS) dst[i] = rnd<R>(src[i]);
 }
 
-// Problem b's weights into shared memory.
+// Problem b's weights into shared memory; the weight matrices rounded under
+// the bf16 modes, the encoding weights only under BF16_APPLY, biases never.
+template <int P>
 __device__ inline void load_weights(const NetArgs& n, const Layout& L, int b, float* s) {
   const int F = n.F, A = n.A, HID = n.HID, FEAT = L.FEAT;
   const float* w1 = n.w1 + (size_t)b * FEAT * HID;
   for (int i = threadIdx.x; i < FEAT * HID; i += THREADS) {
     const int k = i / HID, c = i - k * HID;
-    s[L.w1 + k * L.ldw1 + c] = w1[i];
+    s[L.w1 + k * L.ldw1 + c] = rnd<P>(w1[i]);
   }
   const float* w2 = n.w2 + (size_t)b * HID * HID;
   for (int i = threadIdx.x; i < HID * HID; i += THREADS) {
     const int k = i / HID, c = i - k * HID;
-    s[L.w2 + k * L.ldw2 + c] = w2[i];
+    s[L.w2 + k * L.ldw2 + c] = rnd<P>(w2[i]);
   }
-  copy_to_shared(s + L.w3, n.w3 + (size_t)b * (HID + FEAT), HID + FEAT);
-  copy_to_shared(s + L.ew, n.ew + (size_t)b * 2 * F, 2 * F);
-  copy_to_shared(s + L.eb, n.eb + (size_t)b * F, F);
-  copy_to_shared(s + L.b1, n.b1 + (size_t)b * HID, HID);
-  copy_to_shared(s + L.b2, n.b2 + (size_t)b * HID, HID);
-  if (A > 0) copy_to_shared(s + L.ab, n.ab + (size_t)b * A, A);
+  copy_to_shared<P>(s + L.w3, n.w3 + (size_t)b * (HID + FEAT), HID + FEAT);
+  copy_to_shared<P == BF16_APPLY ? P : F32>(s + L.ew, n.ew + (size_t)b * 2 * F, 2 * F);
+  copy_to_shared<F32>(s + L.eb, n.eb + (size_t)b * F, F);
+  copy_to_shared<F32>(s + L.b1, n.b1 + (size_t)b * HID, HID);
+  copy_to_shared<F32>(s + L.b2, n.b2 + (size_t)b * HID, HID);
+  if (A > 0) copy_to_shared<F32>(s + L.ab, n.ab + (size_t)b * A, A);
   if (threadIdx.x == 0) s[L.b3] = n.b3[b];
 }
 
-// Rows row0 .. row0+TM of x [M, dim] (this problem's), normalised; rows past
-// M read as the origin and are masked by the callers.
+// Rows row0 .. row0+TM of x [M, dim] (this problem's), normalised (and
+// rounded under BF16_APPLY); rows past M read as the origin and are masked
+// by the callers.
+template <int P>
 __device__ inline void load_rows(const float* x, int M, int dim, int row0, const NetArgs& n,
                                  const Layout& L, float* s) {
   const int t = threadIdx.x;
@@ -129,8 +175,8 @@ __device__ inline void load_rows(const float* x, int M, int dim, int row0, const
       py = p[1];
       if (dim > 2) pt = p[2];
     }
-    s[L.xn + t] = (px - n.mean) / n.sigma;
-    s[L.yn + t] = (py - n.mean) / n.sigma;
+    s[L.xn + t] = rnd_enc<P>((px - n.mean) / n.sigma);
+    s[L.yn + t] = rnd_enc<P>((py - n.mean) / n.sigma);
     s[L.th + t] = pt;
   }
 }
@@ -152,6 +198,7 @@ __device__ __forceinline__ float angle_phase(const NetArgs& n, const Layout& L, 
   return (s[L.th + r] + s[L.ab + a]) * *freq;
 }
 
+template <int P>
 __device__ inline void features(const NetArgs& n, const Layout& L, float* s) {
   for (int i = threadIdx.x; i < L.FEAT * TM; i += THREADS) {
     const int k = i / TM, r = i - k * TM;
@@ -164,7 +211,7 @@ __device__ inline void features(const NetArgs& n, const Layout& L, float* s) {
       const float ph = angle_phase(n, L, s, k - n.F, r, &f);
       v = (k - n.F < n.A / 2) ? sinf(ph) : cosf(ph);
     }
-    s[L.feat + k * LDT + r] = v;
+    s[L.feat + k * LDT + r] = rnd<P>(v);
   }
 }
 
@@ -188,7 +235,9 @@ __device__ __forceinline__ void mm_rows(const float* __restrict__ at, int K,
   }
 }
 
-// out[c][r] = relu(sum_k in[k][r] * W[k][c] + bias[c]) for c < N.
+// out[c][r] = relu(sum_k in[k][r] * W[k][c] + bias[c]) for c < N, stored
+// rounded under the bf16 modes (it is the next product's operand).
+template <int P>
 __device__ inline void dense_relu(const float* s_in, int K, const float* s_w, int ldw,
                                   const float* s_b, int N, float* s_out) {
   const int c = threadIdx.x % CSLOTS, r0 = (threadIdx.x / CSLOTS) * RPT;
@@ -201,8 +250,9 @@ __device__ inline void dense_relu(const float* s_in, int K, const float* s_w, in
   float4* o = reinterpret_cast<float4*>(s_out + c * LDT + r0);
 #pragma unroll
   for (int q = 0; q < RPT / 4; ++q)
-    o[q] = make_float4(fmaxf(acc[4 * q] + bc, 0.f), fmaxf(acc[4 * q + 1] + bc, 0.f),
-                       fmaxf(acc[4 * q + 2] + bc, 0.f), fmaxf(acc[4 * q + 3] + bc, 0.f));
+    o[q] = make_float4(rnd<P>(fmaxf(acc[4 * q] + bc, 0.f)), rnd<P>(fmaxf(acc[4 * q + 1] + bc, 0.f)),
+                       rnd<P>(fmaxf(acc[4 * q + 2] + bc, 0.f)),
+                       rnd<P>(fmaxf(acc[4 * q + 3] + bc, 0.f)));
 }
 
 // z[r] = [h2 | features][r] . out.w + out.b, one warp per row.
@@ -223,31 +273,48 @@ __device__ inline void head(const NetArgs& n, const Layout& L, float* s) {
 // The whole forward of one tile; leaves features, h1, h2 and z in shared
 // memory. Starts by overwriting the row buffers, so callers sync between
 // tiles once every read of the previous tile is done.
+template <int P>
 __device__ inline void forward_tile(const float* x, int M, int dim, int row0, const NetArgs& n,
                                     const Layout& L, float* s) {
-  load_rows(x, M, dim, row0, n, L, s);
+  load_rows<P>(x, M, dim, row0, n, L, s);
   __syncthreads();
-  features(n, L, s);
+  features<P>(n, L, s);
   __syncthreads();
-  dense_relu(s + L.feat, L.FEAT, s + L.w1, L.ldw1, s + L.b1, n.HID, s + L.h1);
+  dense_relu<P>(s + L.feat, L.FEAT, s + L.w1, L.ldw1, s + L.b1, n.HID, s + L.h1);
   __syncthreads();
-  dense_relu(s + L.h1, n.HID, s + L.w2, L.ldw2, s + L.b2, n.HID, s + L.h2);
+  dense_relu<P>(s + L.h1, n.HID, s + L.w2, L.ldw2, s + L.b2, n.HID, s + L.h2);
   __syncthreads();
   head(n, L, s);
   __syncthreads();
 }
 
+// g * w for a cotangent g (d logits of a row) entering a product with the
+// head weight w (already rounded): BF16_MULTI rounds the operand g,
+// BF16_APPLY the product.
+template <int P>
+__device__ __forceinline__ float head_cotangent(float g, float w) {
+  if constexpr (P == BF16_APPLY) {
+    return rnd<P>(g * w);
+  } else {
+    return rnd<P>(g) * w;
+  }
+}
+
 // h2 := d pre2 = [h2 > 0] * g[r] * out.w[c]  (g = d logits per row).
+template <int P>
 __device__ inline void head_backprop(const NetArgs& n, const Layout& L, float* s) {
   for (int i = threadIdx.x; i < n.HID * TM; i += THREADS) {
     const int c = i / TM, r = i - c * TM;
     float* h = s + L.h2 + c * LDT + r;
-    *h = *h > 0.f ? s[L.g + r] * s[L.w3 + c] : 0.f;
+    *h = *h > 0.f ? head_cotangent<P>(s[L.g + r], s[L.w3 + c]) : 0.f;
   }
 }
 
 // act[c][r] := [act > 0] * sum_j dout[j][r] * W[c][j]  (ReLU layer backward
-// into its input; `act` holds that layer's input activations).
+// into its input; `act` holds that layer's input activations). BF16_APPLY
+// rounds the sum (the cotangent of the cast on `act`); BF16_MULTI leaves it
+// f32 and its caller rounds it after the bias-gradient row sums.
+template <int P>
 __device__ inline void relu_backprop(const float* s_dout, int K, const float* s_w, int ldw, int N,
                                      float* s_act) {
   const int c = threadIdx.x % CSLOTS, r0 = (threadIdx.x / CSLOTS) * RPT;
@@ -257,16 +324,21 @@ __device__ inline void relu_backprop(const float* s_dout, int K, const float* s_
   for (int q = 0; q < RPT; ++q) acc[q] = 0.f;
   mm_rows(s_dout + r0, K, s_w + c * ldw, 1, acc);
   float4* p = reinterpret_cast<float4*>(s_act + c * LDT + r0);
+  constexpr int R = P == BF16_APPLY ? P : F32;
 #pragma unroll
   for (int q = 0; q < RPT / 4; ++q) {
     const float4 h = p[q];
-    p[q] = make_float4(h.x > 0.f ? acc[4 * q] : 0.f, h.y > 0.f ? acc[4 * q + 1] : 0.f,
-                       h.z > 0.f ? acc[4 * q + 2] : 0.f, h.w > 0.f ? acc[4 * q + 3] : 0.f);
+    p[q] = make_float4(h.x > 0.f ? rnd<R>(acc[4 * q]) : 0.f,
+                       h.y > 0.f ? rnd<R>(acc[4 * q + 1]) : 0.f,
+                       h.z > 0.f ? rnd<R>(acc[4 * q + 2]) : 0.f,
+                       h.w > 0.f ? rnd<R>(acc[4 * q + 3]) : 0.f);
   }
 }
 
 // d feature k for the thread's RPT rows: g[r] * out.w[HID + k] + sum_c
-// dh1[c][r] * W1[k][c], with dh1 in the h1 tile.
+// dh1[c][r] * W1[k][c], with dh1 in the h1 tile. Under BF16_APPLY each of
+// the two terms is a cast's cotangent and is rounded on its own.
+template <int P>
 __device__ inline void feature_grad(const NetArgs& n, const Layout& L, const float* s, int k,
                                     float acc[RPT]) {
   const int r0 = (threadIdx.x / CSLOTS) * RPT;
@@ -275,7 +347,13 @@ __device__ inline void feature_grad(const NetArgs& n, const Layout& L, const flo
   mm_rows(s + L.h1 + r0, n.HID, s + L.w1 + k * L.ldw1, 1, acc);
   const float w = s[L.w3 + n.HID + k];
 #pragma unroll
-  for (int q = 0; q < RPT; ++q) acc[q] = fmaf(s[L.g + r0 + q], w, acc[q]);
+  for (int q = 0; q < RPT; ++q) {
+    if constexpr (P == BF16_APPLY) {
+      acc[q] = rnd<P>(acc[q]) + head_cotangent<P>(s[L.g + r0 + q], w);
+    } else {
+      acc[q] = fmaf(rnd<P>(s[L.g + r0 + q]), w, acc[q]);
+    }
+  }
 }
 
 // d feature -> d its pre-activation (encoding output, or angle phase), with
@@ -299,6 +377,36 @@ inline cudaError_t prepare_launch(Kernel kernel, const Layout& L, size_t* bytes)
   *bytes = (size_t)L.total * sizeof(float);
   if (*bytes > (size_t)MAX_SMEM) return cudaErrorInvalidValue;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*bytes);
+}
+
+// Logits of a batch of fields at their query points (kernels 1 and 5): one
+// CTA per problem, the field in shared memory, only the logits written.
+template <int P>
+__global__ void __launch_bounds__(THREADS, 1)
+onf_logits_kernel(const float* __restrict__ x, int M, int dim, NetArgs n, float* __restrict__ out) {
+  extern __shared__ float4 smem_f4[];
+  float* s = reinterpret_cast<float*>(smem_f4);
+  const Layout L = make_layout(n, 0);
+  const int b = blockIdx.x;
+  load_weights<P>(n, L, b, s);
+  x += (size_t)b * M * dim;
+  out += (size_t)b * M;
+  for (int row0 = 0; row0 < M; row0 += TM) {
+    forward_tile<P>(x, M, dim, row0, n, L, s);
+    if (threadIdx.x < TM && row0 + threadIdx.x < M) out[row0 + threadIdx.x] = s[L.z + threadIdx.x];
+  }
+}
+
+template <int P>
+inline int launch_onf_logits(const NetArgs* net, const float* x, int B, int M, int dim,
+                             float* out, void* stream) {
+  const Layout L = make_layout(*net, 0);
+  size_t bytes;
+  cudaError_t err = prepare_launch(onf_logits_kernel<P>, L, &bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  onf_logits_kernel<P><<<B, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(x, M, dim, *net,
+                                                                                 out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace nf

@@ -16,7 +16,7 @@ from ..utils.tree import tree_leaves, tree_map
 from . import build
 from .common import LAUNCHES, check_points, check_tensor, net_args, stream, use_plain
 
-__all__ = ["field_grad", "field_grad_plain"]
+__all__ = ["field_grad", "field_grad_plain", "launch_field_grad"]
 
 
 class _Grads(ctypes.Structure):
@@ -42,14 +42,14 @@ def field_grad_plain(
     return loss.detach(), tree_map(lambda _: next(grads), leaves)
 
 
-def field_grad(
-    params: dict, points: torch.Tensor, truth: torch.Tensor, config: ONFConfig
+def launch_field_grad(
+    name: str, entry: str, params: dict, points: torch.Tensor, truth: torch.Tensor,
+    config: ONFConfig, *flags: int,
 ) -> tuple[torch.Tensor, dict]:
-    """(loss [B], gradients like `params`) of each field's mean BCE-with-logits
-    on points [B, M, dim] against labels truth [B, M] (bool or float)."""
-    if use_plain(points, config, "field_grad"):
-        return field_grad_plain(params, points, truth, config)
-    batch, m, dim = check_points(points, config, "field_grad")
+    """Check the inputs of a field-gradient kernel (this one or
+    `field_grad_multi`), allocate its outputs, launch C entry point `entry`
+    (with `flags` after the shapes) and count the launch under `name`."""
+    batch, m, dim = check_points(points, config, name)
     y = truth.to(torch.float32).contiguous()
     check_tensor("truth", y, (batch, m), points.device)
     net = net_args(params, config, batch, points.device)
@@ -63,10 +63,20 @@ def field_grad(
         grads["angle_biases"].data_ptr() if config.angle_encoding else None,
     )
     build.check(
-        build.load_library().nf_field_grad(
-            ctypes.byref(net), points.data_ptr(), y.data_ptr(), batch, m, dim, loss.data_ptr(),
-            ctypes.byref(c), stream()),
-        "field_grad",
+        getattr(build.load_library(), entry)(
+            ctypes.byref(net), points.data_ptr(), y.data_ptr(), batch, m, dim, *flags,
+            loss.data_ptr(), ctypes.byref(c), stream()),
+        name,
     )
-    LAUNCHES["field_grad"] += 1
+    LAUNCHES[name] += 1
     return loss, grads
+
+
+def field_grad(
+    params: dict, points: torch.Tensor, truth: torch.Tensor, config: ONFConfig
+) -> tuple[torch.Tensor, dict]:
+    """(loss [B], gradients like `params`) of each field's mean BCE-with-logits
+    on points [B, M, dim] against labels truth [B, M] (bool or float)."""
+    if use_plain(points, config, "field_grad"):
+        return field_grad_plain(params, points, truth, config)
+    return launch_field_grad("field_grad", "nf_field_grad", params, points, truth, config)

@@ -52,6 +52,18 @@ __all__ = ["ConstrainedState", "StepAux", "ConstrainedSolver", "state_from_jax"]
 OracleFn = Callable[[Any, torch.Tensor], torch.Tensor]
 
 
+def _check_chunkable(name: str, num_steps: int, freq: int) -> None:
+    """The batch-explicit run loop has no dynamic fallback: it needs the
+    static [reparam + freq-1 plain] chunk schedule (`constrained.py:52-61`)."""
+    if freq <= 1:
+        raise ValueError(f"{name} requires reparametrize_trajectory_freq > 1")
+    if num_steps % freq != 0:
+        raise ValueError(
+            f"{name} requires num_steps ({num_steps}) to be a multiple of "
+            f"reparametrize_trajectory_freq ({freq})"
+        )
+
+
 class ConstrainedState(NamedTuple):
     """Solver state of a batch of problems (every leaf [B, ...])."""
 

@@ -8,7 +8,7 @@ gradients the `field_grad` kernel; on the CPU their plain versions.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -104,13 +104,19 @@ def sample_field_points(
     buffer_ages: torch.Tensor,
     field_params: dict,
     bounds: torch.Tensor,
+    score_fn: Callable[[dict, torch.Tensor], torch.Tensor] | None = None,
 ) -> FieldSample:
     """Training points of one field step and the advanced replay buffer; the
-    candidates are scored by the field (the `onf_forward` kernel on CUDA)."""
+    candidates [B, M, dim] are scored by score_fn(params, candidates) -> [B,
+    M] logits, by default the field's forward (the `onf_forward` kernel on
+    CUDA)."""
     pre = field_sample_pre(config, noise, prev_trajectory, bounds)
     candidates = torch.cat([buffer_points, pre.fine], dim=1)
     candidate_ages = torch.cat([buffer_ages, torch.zeros_like(pre.fine[..., 0])], dim=1)
-    logits = onf_forward(field_params, candidates, config.onf)[..., 0]
+    if score_fn is None:
+        logits = onf_forward(field_params, candidates, config.onf)[..., 0]
+    else:
+        logits = score_fn(field_params, candidates)
     return field_sample_post(config, pre, logits, candidates, candidate_ages)
 
 

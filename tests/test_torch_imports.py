@@ -5,6 +5,8 @@ import re
 import subprocess
 import sys
 
+import pytest
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|optax|flax|nfopp_tpu)(\.|\s|$)", re.M)
 
@@ -34,3 +36,24 @@ def test_no_jax_import_statements():
     for path in files:
         match = FORBIDDEN.search(path.read_text())
         assert match is None, f"{path.relative_to(ROOT)}: {match.group(0).strip()}"
+
+
+@pytest.mark.parametrize("module", [
+    "nfopp_tpu_torch.experimental",
+    "nfopp_tpu_torch.experimental.solver",
+    "nfopp_tpu_torch.kernels.onf_multi",
+    "nfopp_tpu_torch.kernels.field_grad_multi",
+])
+def test_the_batch_path_modules_load_no_jax(module):
+    """The bf16 batch path's modules, each imported alone."""
+    code = (
+        "import importlib, sys\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'optax', 'flax', 'nfopp_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    result = subprocess.run([sys.executable, "-I", "-c", code], capture_output=True, text=True,
+                            timeout=120)
+    assert result.returncode == 0, result.stderr
