@@ -11,10 +11,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
   3. kernels: each kernel against its plain PyTorch version at the shapes of
      the paths below (B=256 problems, full-width field), with the stated
      tolerances, and timed with CUDA events beside its bound: the f32 kernels
-     of the main path; the multi-problem kernels in f32 and bf16, with
-     P = 1, 2, 4, 8 problems per program giving identical outputs; the
-     collision kernels' bf16 mode; then every kernel on the other field
-     configurations at small shapes, in f32 and bf16;
+     of the main path and their bf16 mode (onf_apply's casts); the
+     multi-problem kernels in f32 and bf16, with P = 1, 2, 4, 8 problems per
+     program giving identical outputs; the collision kernels' bf16 mode; two
+     launches of each field-gradient kernel giving identical bits; then every
+     kernel on the other field configurations at small shapes, in f32 and
+     bf16;
   4. main path: the batched car-scene solve (run_planner_config, f32,
      B=256 x 1000 steps, seeded) through the port's entry points, after a
      one-step CUDA-vs-CPU agreement check on 4 problems (then 100 more steps
@@ -25,7 +27,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
      CUDA-vs-CPU agreement check of that path on 4 problems; each of its
      four kernels (onf_multi, field_grad_multi and the collision kernels'
      bf16 mode) must launch once per step, and the feasible fraction must
-     reach 0.98.
+     reach 0.98;
+  6. bf16 main path: ConstrainedSolver.run in bf16 (bench.py's default
+     precision), B=256 x 1000 steps, after a one-step CUDA-vs-CPU agreement
+     check on 4 problems; each of its four kernels (the bf16 mode of
+     onf_forward, field_grad and the collision kernels) must launch once per
+     step, and the feasible fraction must reach 0.98.
 The last two lines are the card (nvidia-smi) and {"ok": true, "device": ...};
 before them, one JSON line lists every kernel with its launches, error and
 times, and earlier lines hold each path's numbers and the f32 checks of the
@@ -51,6 +58,15 @@ PROBLEMS_PER_PROGRAM = (1, 2, 4, 8)  # P of the multi-problem kernels; 8 on the 
 # for up to MAX_KINKS such units (see `hold`).
 KINK_TOL = 1e-5
 MAX_KINKS = 10
+# Under bf16 a forward operand (a feature, h1 or h2 element) whose two f32
+# sums straddle a bf16 rounding boundary (a tie, below) moves by one bf16 ulp
+# and moves the next layer's pre-activations by up to BF16_ULP |a_j| |W_jc|:
+# a unit that close to zero can take the other side in the kernel than in the
+# plain version though it is far from zero in f64. A bf16 problem that no
+# choice of sides within KINK_TOL explains is recomputed with one such unit
+# flipped (with up to two of the KINK_TOL units), trying the MAX_TIE_FLIPS
+# units nearest zero relative to their reach.
+MAX_TIE_FLIPS = 40
 
 # bf16 outputs. Kernel and plain version round at the same places, so they
 # agree at the f32 bounds except where one product's two f32 sums, taken in
@@ -74,8 +90,9 @@ CARD_PEAKS = {"H100 PCIe": (51.2e12, 756e12, 2.0e12), "H100 NVL": (60.0e12, 835e
 
 MAIN_PATH = ("onf_forward", "field_grad", "collision_fwd", "collision_bwd")
 BATCH_PATH = ("onf_multi", "field_grad_multi", "collision_fwd_bf16", "collision_bwd_bf16")
-# each batch-path kernel computes its main-path counterpart's function
-COUNTERPART = dict(zip(BATCH_PATH, MAIN_PATH))
+MAIN_PATH_BF16 = ("onf_forward_bf16", "field_grad_bf16", "collision_fwd_bf16", "collision_bwd_bf16")
+# each bf16 kernel computes its f32 counterpart's function
+COUNTERPART = {**dict(zip(BATCH_PATH, MAIN_PATH)), **dict(zip(MAIN_PATH_BF16, MAIN_PATH))}
 REPLACES = {
     "onf_forward": "nfopp_tpu/experimental/pallas/onf_fused.py:73",
     "field_grad": "nfopp_tpu/experimental/pallas/field_grad.py:35",
@@ -85,6 +102,8 @@ REPLACES = {
     "field_grad_multi": "nfopp_tpu/experimental/pallas/field_grad_multi.py:32",
     "collision_fwd_bf16": "nfopp_tpu/experimental/pallas/collision_terms.py:76",
     "collision_bwd_bf16": "nfopp_tpu/experimental/pallas/collision_terms.py:99",
+    "onf_forward_bf16": "nfopp_tpu/experimental/pallas/onf_fused.py:73",
+    "field_grad_bf16": "nfopp_tpu/experimental/pallas/field_grad.py:35",
 }
 SOURCES = {
     "onf_forward": "nfopp_tpu_torch/kernels/csrc/onf_forward.cu",
@@ -95,11 +114,36 @@ SOURCES = {
     "field_grad_multi": "nfopp_tpu_torch/kernels/csrc/field_grad_multi.cu",
     "collision_fwd_bf16": "nfopp_tpu_torch/kernels/csrc/collision_terms.cu",
     "collision_bwd_bf16": "nfopp_tpu_torch/kernels/csrc/collision_terms.cu",
+    "onf_forward_bf16": "nfopp_tpu_torch/kernels/csrc/onf_forward.cu",
+    "field_grad_bf16": "nfopp_tpu_torch/kernels/csrc/field_grad.cu",
 }
 
 
 def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
+
+
+def tensor_core_kernels(build) -> dict:
+    """HMMA (tensor-core) instructions in each kernel of the built library,
+    from `cuobjdump -sass`; raises unless every instantiation of the bf16
+    field-gradient kernel has some."""
+    import shutil
+    import subprocess
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(build.library_path())], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = 0
+        elif name is not None and "HMMA" in line:
+            counts[name] += 1
+    tc = {k: v for k, v in counts.items() if "field_grad_tc_kernel" in k}
+    if len(tc) != 2 or not all(tc.values()):
+        raise AssertionError(f"bf16 field-gradient kernels without tensor-core instructions: {tc}")
+    return {k: v for k, v in counts.items() if "field_grad" in k}
 
 
 def card_peaks(name: str) -> tuple[str, float, float, float]:
@@ -184,7 +228,7 @@ def pallas_mm(a, w):
     return PallasMM.apply(a, w)
 
 
-def masked_forward(params, x, cfg, flips=(), casts=None):
+def masked_forward(params, x, cfg, flips=(), casts=None, record=None):
     """The field's forward pass (models/onf.py's graph, written out again) on
     one problem in whatever dtype its inputs have, with each ReLU's mask taken
     from its pre-activation and flipped at the (layer, point, unit) entries of
@@ -193,7 +237,8 @@ def masked_forward(params, x, cfg, flips=(), casts=None):
     rest) or "apply" (onf_apply's: every product's operands, xy and the
     encoding weights too, cast separately at each use, so that autograd rounds
     each cotangent where it passes back through a cast). Returns the logits
-    [1, M] and the two pre-activations [1, M, hid]."""
+    [1, M] and the two pre-activations [1, M, hid]; a dict `record` receives
+    each ReLU layer's input and weight under "inputs" and "weights"."""
     import torch
 
     from nfopp_tpu_torch.models import angle_encode
@@ -212,7 +257,12 @@ def masked_forward(params, x, cfg, flips=(), casts=None):
         angle = angle_encode(params["angle_biases"], x[..., 2], cfg.angle_harmonics)
         feats = torch.cat([enc, angle], dim=-1)
     h, pre = feats, []
+    if record is not None:
+        record["inputs"], record["weights"] = [], []
     for layer, name in enumerate(("mlp1", "mlp2")):
+        if record is not None:
+            record["inputs"].append(h.detach())
+            record["weights"].append(params[name]["w"].detach())
         z = mm(h, params[name]["w"]) + params[name]["b"][:, None]
         mask = z.detach() > 0
         for flip_layer, point, unit in flips:
@@ -224,29 +274,56 @@ def masked_forward(params, x, cfg, flips=(), casts=None):
     return logits[..., 0], pre
 
 
+def tie_reach_units(pre, record, near) -> list:
+    """ReLU units (layer, point, unit) beyond KINK_TOL of zero but within the
+    reach of one bf16 tie in the layer's input, BF16_ULP max_j |a_j| |W_jc|,
+    nearest zero relative to their reach first; at most MAX_TIE_FLIPS."""
+    ranked = []
+    for layer, (z, a, w) in enumerate(zip(pre, record["inputs"], record["weights"])):
+        reach = BF16_ULP * (a[0].abs()[:, :, None] * w[0].abs()[None]).amax(dim=1)
+        ratio = z[0].abs() / reach
+        for point, unit in ((z[0].abs() >= KINK_TOL) & (ratio < 1)).nonzero().tolist():
+            ranked.append((float(ratio[point, unit]), (layer, point, unit)))
+    ranked.sort()
+    return [unit for _, unit in ranked[:MAX_TIE_FLIPS] if unit not in near]
+
+
 def explain_by_kinks(name, i, got, tols, params, points, cfg, recompute, bf16=False) -> list:
     """The flips (layer, point, unit) under which problem i's f64
     recomputation meets the bounds `tols` against the kernel's outputs `got`;
-    raises if no choice of sides for its near-zero ReLU units does."""
+    raises if no choice of sides for its near-zero ReLU units does (under
+    bf16, nor one unit within a tie's reach, `tie_reach_units`)."""
     from nfopp_tpu_torch.utils.tree import tree_map
 
     p = tree_map(lambda t: t[i:i + 1].detach().double(), params)
     x = points[i:i + 1].detach().double()
-    _, pre = masked_forward(p, x, cfg, casts=recompute.casts)
+    record = {}
+    _, pre = masked_forward(p, x, cfg, casts=recompute.casts, record=record)
     near = [(layer, point, unit) for layer, z in enumerate(pre)
             for _, point, unit in (z.abs() < KINK_TOL).nonzero().tolist()]
     if len(near) > MAX_KINKS:
         raise AssertionError(f"{name}: problem {i} has {len(near)} ReLU units within "
                              f"{KINK_TOL} of zero, more than the {MAX_KINKS} tried")
+
+    def meets(flips) -> bool:
+        want = recompute(p, x, i, flips)
+        return all(bool(within(g[i:i + 1].double(), w, *t, bf16).all())
+                   for g, w, t in zip(got, want, tols))
+
     for k in range(len(near) + 1):
         for flips in itertools.combinations(near, k):
-            want = recompute(p, x, i, flips)
-            if all(bool(within(g[i:i + 1].double(), w, *t, bf16).all())
-                   for g, w, t in zip(got, want, tols)):
+            if meets(flips):
                 return list(flips)
+    tied = tie_reach_units(pre, record, near) if bf16 else []
+    for unit in tied:
+        for k in range(min(len(near), 2) + 1):
+            for flips in itertools.combinations(near, k):
+                if meets(flips + (unit,)):
+                    return list(flips + (unit,))
     raise AssertionError(
         f"{name}: problem {i} misses its bound, and no choice of sides for its "
-        f"{len(near)} ReLU unit(s) within {KINK_TOL} of zero explains it: {near}")
+        f"{len(near)} ReLU unit(s) within {KINK_TOL} of zero explains it: {near}"
+        + (f", nor one of the {len(tied)} within a bf16 tie's reach" if bf16 else ""))
 
 
 def hold(name, got, want, tols, kinks=None, bf16=False) -> float:
@@ -264,7 +341,8 @@ def hold(name, got, want, tols, kinks=None, bf16=False) -> float:
     passes only if `explain_by_kinks` finds flips among its units within
     KINK_TOL of zero under which the f64 recomputation meets the same bounds;
     each such problem is logged. Under bf16 the flips found may be none: the
-    plain version, not the kernel, sat on the far side of a bf16 rounding.
+    plain version, not the kernel, sat on the far side of a bf16 rounding; or
+    one of them a unit within a bf16 tie's reach (`tie_reach_units`).
     """
     import torch
 
@@ -454,39 +532,58 @@ def check_collision(inp: "KernelInputs", onf) -> dict:
     return results
 
 
+def same_bits(name, fn) -> None:
+    """Two launches of `fn` give identical bits (no atomics, fixed order)."""
+    import torch
+
+    from nfopp_tpu_torch.utils.tree import tree_leaves
+
+    first, second = tree_leaves(fn()), tree_leaves(fn())
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError(f"{name}: two launches differ")
+
+
 def check_kernels(device, peaks, seed: int, batch: int) -> dict:
-    """Phase 3, main path: the f32 kernels against their plain versions at the
-    main path's shapes."""
+    """Phase 3, main paths: kernels 1 and 2 in f32 and in bf16 (onf_apply's
+    casts, held with the bf16 tie allowance and the "apply" kink
+    recomputation) and the f32 collision kernels against their plain
+    versions at the main path's shapes."""
     from nfopp_tpu_torch import kernels
     from nfopp_tpu_torch.utils.tree import tree_leaves
 
     inp = KernelInputs(device, seed, batch)
-    onf, params, x1, x2, truth = inp.onf, inp.params, inp.x1, inp.x2, inp.truth
+    params, x1, x2, truth = inp.params, inp.x1, inp.x2, inp.truth
     results = {}
+    for onf in (inp.onf, inp.onf_bf16):
+        bf16 = onf.compute_dtype == "bfloat16"
+        suffix = "_bf16" if bf16 else ""
 
-    # kernel 1: forward (tolerance of tests/test_pallas.py:32)
-    got = kernels.onf_forward(params, x1, onf)
-    want = kernels.onf_forward_plain(params, x1, onf)
-    results["onf_forward"] = {
-        "max_abs_err": hold("onf_forward", [got], [want], [(1e-4, 2e-4)]),
-        "ms": time_ms(lambda: kernels.onf_forward(params, x1, onf)),
-        "plain_ms": time_ms(lambda: kernels.onf_forward_plain(params, x1, onf)),
-    }
+        # kernel 1: forward (tolerance of tests/test_pallas.py:32)
+        got = kernels.onf_forward(params, x1, onf)
+        want = kernels.onf_forward_plain(params, x1, onf)
+        results["onf_forward" + suffix] = {
+            "max_abs_err": hold("onf_forward" + suffix, [got], [want], [(1e-4, 2e-4)], bf16=bf16),
+            "ms": time_ms(lambda: kernels.onf_forward(params, x1, onf)),
+            "plain_ms": time_ms(lambda: kernels.onf_forward_plain(params, x1, onf)),
+        }
 
-    # kernel 2: loss + every parameter gradient (tests/test_field_grad_fused.py:33-46)
-    loss, grads = kernels.field_grad(params, x2, truth, onf)
-    ref_loss, ref_grads = kernels.field_grad_plain(params, x2, truth, onf)
-    results["field_grad"] = {
-        "max_abs_err": max(
-            hold("field_grad loss", [loss], [ref_loss], [(1e-5, 1e-6)]),
-            hold("field_grad gradients", tree_leaves(grads), tree_leaves(ref_grads),
-                 [(2e-4, 2e-5)] * len(tree_leaves(grads)),
-                 kinks=(params, x2, onf, field_grad_f64(truth, onf)))),
-        "ms": time_ms(lambda: kernels.field_grad(params, x2, truth, onf)),
-        "plain_ms": time_ms(lambda: kernels.field_grad_plain(params, x2, truth, onf)),
-    }
+        # kernel 2: loss + every parameter gradient (tests/test_field_grad_fused.py:33-46)
+        name = "field_grad" + suffix
+        loss, grads = kernels.field_grad(params, x2, truth, onf)
+        ref_loss, ref_grads = kernels.field_grad_plain(params, x2, truth, onf)
+        same_bits(name, lambda: kernels.field_grad(params, x2, truth, onf))
+        results[name] = {
+            "max_abs_err": max(
+                hold(f"{name} loss", [loss], [ref_loss], [(1e-5, 1e-6)], bf16=bf16),
+                hold(f"{name} gradients", tree_leaves(grads), tree_leaves(ref_grads),
+                     [(2e-4, 2e-5)] * len(tree_leaves(grads)),
+                     kinks=(params, x2, onf, field_grad_f64(truth, onf, "apply" if bf16 else None)),
+                     bf16=bf16)),
+            "ms": time_ms(lambda: kernels.field_grad(params, x2, truth, onf)),
+            "plain_ms": time_ms(lambda: kernels.field_grad_plain(params, x2, truth, onf)),
+        }
 
-    results.update(check_collision(inp, onf))
+    results.update(check_collision(inp, inp.onf))
     add_bounds(results, inp, peaks)
     return results
 
@@ -518,6 +615,8 @@ def check_batch_kernels(device, peaks, seed: int, batch: int) -> tuple[dict, dic
             same = [torch.equal(a, b) for a, b in zip([z, loss, *tree_leaves(grads)], first)]
             if not all(same):
                 raise AssertionError(f"multi-problem kernels ({tag}): P={p} differs from P=1")
+        same_bits(f"field_grad_multi {tag}",
+                  lambda: kernels.field_grad_multi(params, x2, truth, onf, p_last))
         out = results if bf16 else f32
         out["onf_multi"] = {
             "max_abs_err": hold(f"onf_multi {tag}", [logits[0]],
@@ -551,8 +650,7 @@ def check_configs(device, seed: int) -> dict:
     """Every kernel on the other field configurations (those of the JAX kernel
     tests, tests/test_field_grad_fused.py:13-20, plus bias=False) on small
     shapes that end in partial tiles, against its plain version with the
-    tolerances of phase 3: the f32 kernels, the multi-problem kernels in f32
-    and bf16, the collision kernels in bf16."""
+    tolerances of phase 3, in f32 and bf16."""
     import torch
 
     from nfopp_tpu_torch import kernels
@@ -578,18 +676,17 @@ def check_configs(device, seed: int) -> dict:
             err = 0.0
             for onf in (base, base._replace(compute_dtype="bfloat16")):
                 bf16 = onf.compute_dtype == "bfloat16"
-                casts = "multi" if bf16 else None
                 forward_fns = {"onf_multi": (lambda *a: kernels.onf_multi(*a, 3),
-                                             kernels.onf_multi_plain)}
+                                             kernels.onf_multi_plain),
+                               "onf_forward": (kernels.onf_forward, kernels.onf_forward_plain)}
                 field_fns = {"field_grad_multi": (lambda *a: kernels.field_grad_multi(*a, 3),
-                                                  kernels.field_grad_multi_plain)}
-                if not bf16:
-                    forward_fns["onf_forward"] = (kernels.onf_forward, kernels.onf_forward_plain)
-                    field_fns["field_grad"] = (kernels.field_grad, kernels.field_grad_plain)
+                                                  kernels.field_grad_multi_plain, "multi"),
+                             "field_grad": (kernels.field_grad, kernels.field_grad_plain, "apply")}
                 for name, (fn, plain) in forward_fns.items():
                     err = max(err, hold(name, [fn(params, x, onf)], [plain(params, x, onf)],
                                         [(1e-4, 2e-4)], bf16=bf16))
-                for name, (fn, plain) in field_fns.items():
+                for name, (fn, plain, casts) in field_fns.items():
+                    casts = casts if bf16 else None
                     loss, grads = fn(params, x, truth, onf)
                     ref_loss, ref_grads = plain(params, x, truth, onf)
                     leaves = tree_leaves(grads)
@@ -682,10 +779,11 @@ def agreement_check(device, seed: int) -> tuple[dict, list]:
     return errors, drift
 
 
-def batch_agreement_check(device, seed: int) -> dict:
-    """One step of the bf16 batch path (`_step_batch` with reparametrization,
-    P=4) on 4 problems, 10 steps into a solve, through the CUDA kernels and
-    through the plain versions on the CPU, from the same state and noise.
+def bf16_agreement_check(device, seed: int, batch_path: bool) -> dict:
+    """One step with reparametrization of a bf16 path on 4 problems, 10 steps
+    into a solve, through the CUDA kernels and through the plain versions on
+    the CPU, from the same state and noise: the batch path (`_step_batch`,
+    P=4) or the bf16 main path (ConstrainedSolver.step_static).
 
     Tolerances: the field loss and the replay buffer come from the entry
     field, as in the f32 check (rtol 1e-4; atol 1e-5), with the bf16 tie
@@ -706,33 +804,44 @@ def batch_agreement_check(device, seed: int) -> dict:
     from nfopp_tpu_torch.utils.tree import tree_leaves, tree_map
     from nfopp_tpu_torch.worlds import rectangle_collision
 
+    from nfopp_tpu_torch.solver import ConstrainedSolver
+
     cfg = bf16_config(run_planner_config())
+    solver_cls = ExperimentalConstrainedSolver if batch_path else ConstrainedSolver
+    tag = "batch" if batch_path else "main bf16"
     oracle, start, goal, bounds = car_world(4, device)
-    solver = ExperimentalConstrainedSolver(cfg, rectangle_collision, device=device)
+    solver = solver_cls(cfg, rectangle_collision, device=device)
     g = torch.Generator().manual_seed(seed)
     state = solver.init_state(g, start, goal, bounds, oracle)
-    state, _ = solver.run_batch(state, oracle, 10, GeneratorNoise(g), problems_per_program=4)
+    if batch_path:
+        state, _ = solver.run_batch(state, oracle, 10, GeneratorNoise(g), problems_per_program=4)
+    else:
+        state, _ = solver.run(state, oracle, 10, GeneratorNoise(g))
 
     outs = []
     for dev in (device, torch.device("cpu")):
-        slv = ExperimentalConstrainedSolver(cfg, rectangle_collision, device=dev)
+        slv = solver_cls(cfg, rectangle_collision, device=dev)
         noise = GeneratorNoise(torch.Generator().manual_seed(seed + 1))
-        st, aux = slv._step_batch(tree_map(lambda x: x.to(dev), state), car_world(4, dev)[0],
-                                  noise, True, 4)
+        st, orc = tree_map(lambda x: x.to(dev), state), car_world(4, dev)[0]
+        if batch_path:
+            st, aux = slv._step_batch(st, orc, noise, True, 4)
+        else:
+            st, aux = slv.step_static(st, orc, noise, with_reparam=True)
         outs.append(tree_map(lambda x: x.cpu(), (st, aux)))
     (a, aux_a), (b, aux_b) = outs
     errors = {
-        "field_loss": hold("batch field_loss", [aux_a.field_loss], [aux_b.field_loss],
+        "field_loss": hold(f"{tag} field_loss", [aux_a.field_loss], [aux_b.field_loss],
                            [(1e-4, 1e-5)], bf16=True),
-        "trajectory_loss": hold("batch trajectory_loss", [aux_a.trajectory_loss],
+        "trajectory_loss": hold(f"{tag} trajectory_loss", [aux_a.trajectory_loss],
                                 [aux_b.trajectory_loss], [(1e-3, 1e-5)]),
     }
     for name, tol in (("buffer_points", 1e-5), ("buffer_ages", 0.0), ("trajectory", 1e-4),
                       ("collision_multipliers", 1e-4), ("constraint_multipliers", 1e-4)):
-        errors[name] = hold(f"batch {name}", [getattr(a, name)], [getattr(b, name)],
+        errors[name] = hold(f"{tag} {name}", [getattr(a, name)], [getattr(b, name)],
                             [(0.0, tol)])
     params = list(zip(tree_leaves(a.field_params), tree_leaves(b.field_params)))
-    errors["field_params"] = hold("batch field_params", *zip(*params), [(0.0, 1e-3)] * len(params))
+    errors["field_params"] = hold(f"{tag} field_params", *zip(*params),
+                                  [(0.0, 1e-3)] * len(params))
     return errors
 
 
@@ -741,10 +850,11 @@ def bf16_config(cfg):
     return cfg._replace(onf=cfg.onf._replace(compute_dtype="bfloat16"))
 
 
-def solve(device, seed: int, batch: int, steps: int, path: tuple, bf16_batch: bool):
-    """The B x steps car-scene solve through the kernels: the f32 main path
-    (ConstrainedSolver.run) or the bf16 batch path (run_batch, P=8). Each
-    kernel of `path` must launch once per step and no other kernel at all."""
+def solve(device, seed: int, batch: int, steps: int, path: tuple):
+    """The B x steps car-scene solve through the kernels of `path`: the f32 or
+    bf16 main path (ConstrainedSolver.run) or the bf16 batch path (run_batch,
+    P=8). Each kernel of `path` must launch once per step and no other kernel
+    at all."""
     import torch
 
     from nfopp_tpu_torch import kernels
@@ -754,11 +864,10 @@ def solve(device, seed: int, batch: int, steps: int, path: tuple, bf16_batch: bo
     from nfopp_tpu_torch.worlds import rectangle_collision
 
     oracle, start, goal, bounds = car_world(batch, device)
-    if bf16_batch:
-        solver = ExperimentalConstrainedSolver(bf16_config(run_planner_config()),
-                                               rectangle_collision, device=device)
-    else:
-        solver = ConstrainedSolver(run_planner_config(), rectangle_collision, device=device)
+    bf16_batch = path == BATCH_PATH
+    cfg = run_planner_config() if path == MAIN_PATH else bf16_config(run_planner_config())
+    solver_cls = ExperimentalConstrainedSolver if bf16_batch else ConstrainedSolver
+    solver = solver_cls(cfg, rectangle_collision, device=device)
     g = torch.Generator(device=device).manual_seed(seed)
     state = solver.init_state(g, start, goal, bounds, oracle)
     torch.cuda.synchronize()
@@ -833,6 +942,7 @@ def main() -> int:
         for line in ptxas.read_text().splitlines():
             if "registers" in line or "spill" in line or line.startswith("=="):
                 log("  " + line.strip())
+    log(f"HMMA instructions per kernel (cuobjdump -sass): {tensor_core_kernels(build)}")
 
     # 3. kernels against their plain versions
     kernel_results = check_kernels(device, peaks, args.seed, BATCH)
@@ -844,20 +954,30 @@ def main() -> int:
     # 4. main path
     agreement, drift = agreement_check(device, args.seed)
     log(f"agreement CUDA vs CPU, one step of 4 problems: {agreement}")
-    metrics, launches = solve(device, args.seed, BATCH, STEPS, MAIN_PATH, bf16_batch=False)
+    metrics, launches = solve(device, args.seed, BATCH, STEPS, MAIN_PATH)
     metrics.update(build_s=build_s, agreement_max_abs=agreement, card=card,
                    drift_trajectory={d["step"]: d["trajectory"] for d in drift})
     print(json.dumps({"main_path": metrics}), flush=True)
 
     # 5. bf16 batch path
-    agreement = batch_agreement_check(device, args.seed)
+    agreement = bf16_agreement_check(device, args.seed, batch_path=True)
     log(f"agreement CUDA vs CPU, one bf16 batch step of 4 problems: {agreement}")
-    batch_metrics, batch_launches = solve(device, args.seed, BATCH, STEPS, BATCH_PATH,
-                                          bf16_batch=True)
+    batch_metrics, batch_launches = solve(device, args.seed, BATCH, STEPS, BATCH_PATH)
     batch_metrics.update(problems_per_program=PROBLEMS_PER_PROGRAM[-1], compute_dtype="bfloat16",
                          agreement_max_abs=agreement, card=card)
     print(json.dumps({"batch_path": batch_metrics}), flush=True)
     launches.update({name: batch_launches[name] for name in BATCH_PATH})
+
+    # 6. bf16 main path
+    agreement = bf16_agreement_check(device, args.seed, batch_path=False)
+    log(f"agreement CUDA vs CPU, one bf16 main-path step of 4 problems: {agreement}")
+    bf16_metrics, bf16_launches = solve(device, args.seed, BATCH, STEPS, MAIN_PATH_BF16)
+    bf16_metrics.update(compute_dtype="bfloat16", agreement_max_abs=agreement, card=card)
+    print(json.dumps({"main_path_bf16": bf16_metrics}), flush=True)
+    # the collision kernels' bf16 mode runs on both bf16 paths; its launches
+    # are the batch path's, which the line reported before this path existed
+    launches.update({name: bf16_launches[name] for name in MAIN_PATH_BF16
+                     if name not in BATCH_PATH})
 
     entries = []
     for name, res in kernel_results.items():

@@ -4,9 +4,10 @@ kernels for NVIDIA Hopper.
 A port of `nfopp_tpu` (JAX on a TPU), which stays beside it as the reference.
 This package imports neither JAX nor anything of `nfopp_tpu`. Entry points
 run on CUDA unless the caller passes `device="cpu"`, where the kernels'
-plain PyTorch versions stand in. `ConstrainedSolver` is the production solve
-(f32 on CUDA); `ExperimentalConstrainedSolver.run_batch` is the batch-explicit
-solve, which also runs compute_dtype="bfloat16" on CUDA.
+plain PyTorch versions stand in. `ConstrainedSolver` is the production solve,
+in f32 or with compute_dtype="bfloat16" (onf_apply's casts);
+`ExperimentalConstrainedSolver.run_batch` is the batch-explicit solve, in f32
+or bf16 with the TPU multi-problem kernels' casts.
 """
 from .experimental import ExperimentalConstrainedSolver
 from .models import ONFConfig, init_onf_params, onf_apply, params_from_jax

@@ -5,7 +5,7 @@
   multi-problem kernels (`kernels.onf_multi`, `kernels.field_grad_multi`),
   which follow `ONFConfig.compute_dtype`; the trajectory update is the
   ordinary one, whose collision terms take `onf_apply`'s casts
-  (`kernels.collision_terms`). On CUDA this is the port's bf16 path.
+  (`kernels.collision_terms`).
 - `jacobi_step`: the trajectory update reads the entry field, a reordering
   of the default step.
 - `use_fused_field_grad`: accepted for the JAX package's interface. On CUDA

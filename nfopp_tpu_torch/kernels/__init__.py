@@ -8,9 +8,9 @@ beside its plain PyTorch version.
 | onf_multi.py::_kernel                        | onf_multi.onf_multi                |
 | field_grad_multi.py::_kernel                 | field_grad_multi.field_grad_multi  |
 
-The first three are the production solver's field passes (f32 on CUDA; the
-collision kernels also take compute_dtype="bfloat16", with `onf_apply`'s
-casts). The last two are the batch-explicit solve's
+The first three are the production solver's field passes, in f32 or in
+bf16 with `onf_apply`'s casts (launches counted under "<name>_bf16"). The
+last two are the batch-explicit solve's
 (`experimental.ExperimentalConstrainedSolver.run_batch`), in f32 or bf16 with
 the TPU multi-problem kernels' casts.
 

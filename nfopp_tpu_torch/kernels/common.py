@@ -19,15 +19,13 @@ __all__ = [
 ]
 
 # launches of each kernel, counted by its wrapper where it launches it; the
-# collision kernels' bf16 mode counts under its own names
+# bf16 mode of the production solver's kernels (onf_apply's casts) counts
+# under its own names
 LAUNCHES = {
     "onf_forward": 0, "field_grad": 0, "collision_fwd": 0, "collision_bwd": 0,
-    "onf_multi": 0, "field_grad_multi": 0, "collision_fwd_bf16": 0, "collision_bwd_bf16": 0,
+    "onf_multi": 0, "field_grad_multi": 0,
+    "onf_forward_bf16": 0, "field_grad_bf16": 0, "collision_fwd_bf16": 0, "collision_bwd_bf16": 0,
 }
-
-# wrappers whose kernels are f32 only: the production solver's field passes,
-# whose bf16 mode (onf_apply's casts) is a later item of ROADMAP.md
-F32_ONLY = ("onf_forward", "field_grad")
 
 # what one CTA holds (csrc/onf_common.cuh): one hidden column per thread
 # slot, at most two feature columns per thread slot
@@ -54,12 +52,7 @@ def use_plain(x: torch.Tensor, config: ONFConfig, name: str) -> bool:
         return True
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
-    if is_bf16(config) and name in F32_ONLY:
-        raise NotImplementedError(
-            f"{name}: compute_dtype='bfloat16' on CUDA is not ported for the production "
-            "solver's field passes (ROADMAP.md section 1, item 18); the batch-explicit "
-            "solve (experimental.ExperimentalConstrainedSolver.run_batch) runs bf16"
-        )
+    is_bf16(config)  # raises for a compute_dtype no kernel takes
     return False
 
 

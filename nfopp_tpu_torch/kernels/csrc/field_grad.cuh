@@ -1,26 +1,69 @@
 // Field training step for a batch of problems (kernels 2 and 4): the ONF
 // forward on M labelled points, the mean BCE-with-logits loss, and the
 // gradient of every parameter (encoding w/b, mlp1, mlp2, out, angle biases);
-// no input gradients.
+// no input gradients. One CTA per problem; no atomics, every sum in a fixed
+// order, so results repeat bit for bit from launch to launch.
 //
-// Design: one CTA per problem, field in shared memory (onf_common.cuh). The
-// two big gradients (W1 220x100, W2 100x100: another 128 KB) do not fit in
-// shared memory beside the weights and the tiles, so each tile adds its
-// contribution to the problem's own slice of the output: the first tile
-// stores, later tiles read-modify-write, each element always by the same
-// thread. No atomics: the sums are taken in one fixed order and repeat bit
-// for bit from run to run. The small gradients (out.w, biases, encoding,
-// angle biases) accumulate in shared memory and are written once.
+// Roundings (onf_common.cuh's template parameter P):
+//   F32         no rounding (kernel 2, and kernel 4 in f32);
+//   BF16_MULTI  the TPU kernel field_grad_multi.py::_kernel: every product
+//               rounds both operands, the cotangents g, dh2 and dh1 included,
+//               while the row sums of the bias and encoding gradients take the
+//               f32 cotangents (d_b3 sums g before it is rounded, d_b2 and d_b1
+//               sum dh2 and dh1 before they are); the encoding layer in f32;
+//   BF16_APPLY  the production solver's bf16 field update, autograd of
+//               models/onf.py::onf_apply's casts: xy and the encoding weights
+//               rounded too; each activation cotangent rounded where it passes
+//               back through a cast (onf_common.cuh); out.w's gradient takes
+//               the f32 g; each gradient of a cast weight (encoding, mlp1,
+//               mlp2, out weights) is its f32 sum over all M points rounded
+//               once to bf16; the bias gradients stay f32 sums.
+// The ReLU masks come from the f32 pre-activations (h > 0 holds for bf16(h) as
+// for h).
 //
-// Under BF16_MULTI (the TPU kernel field_grad_multi.py::_kernel) every
-// product rounds both operands, the cotangents g, dh2 and dh1 included,
-// while the row sums of the bias and encoding gradients take the f32
-// cotangents: d_b3 sums g before it is rounded, d_b2 and d_b1 sum dh2 and
-// dh1 before the tile is rounded in place, and the encoding and angle-bias
-// sums never see a rounded value. The ReLU masks come from the f32
-// pre-activations (h > 0 holds for bf16(h) as for h).
+// Bound on this card (H100 SXM data sheet rates), B=256 x M=209, full-width
+// field: ~10.5 GFLOP, 156 us at 67 TFLOP/s f32 or 11 us at 989 TFLOP/s bf16,
+// against ~68 MB of f32 weights in and gradients out, 20 us at 3.35 TB/s.
+//
+// bf16 modes (field_grad_tc_kernel): the six matrix products of a tile run on
+// the tensor cores through mma.sync m16n8k16 (mma.cuh): forward feat.W1 and
+// h1.W2, backward dpre2.W2^T, dpre1.W1^T, h1^T.dpre2 and feat^T.dpre1. A
+// bf16 x bf16 product is exact in f32, so only the order of the f32 sums
+// differs from the plain version's. mma.sync rather than wgmma: M = 209
+// rows fill 14 m16 tiles with 7% padding against four 64-row wgmma tiles with
+// 22%; wgmma, TMA and warp specialisation are later work. Shared memory holds
+// the weights in bf16 (W1 224 x 120 and W2 112 x 120 at the full width, rows
+// padded by 16 bytes so that ldmatrix reads 8 rows from 8 bank groups), the
+// bf16 activation tiles of 32 rows (row-major, zero past each width), the f32
+// slope of every feature (its sin/cos partner, from one sincosf with the
+// feature, so the encoding gradients recompute no trig) and dW2's f32 sum:
+// ~205 KB, one CTA of 16 warps per SM, so the tiles stay at 32 rows. dW1's
+// f32 sum stays in the MMA accumulators of the warps that own its 16 x 8
+// tiles (at most 12 per warp, 48 registers; 128 registers in all, no
+// spills). So both weight
+// gradients accumulate on chip over all row tiles and are written once,
+// rounded under BF16_APPLY, dW1 staged through the freed shared memory so
+// that its rows are written whole. Each warp owns whole 8-column tiles of
+// every other product's output (two at a time where they share A
+// fragments), so each column's sum over the tile's rows (bias and encoding
+// gradients) is a fixed butterfly in one warp. Epilogues work on the f32
+// accumulators in registers (bias, ReLU mask, bias-gradient sums, rounding as
+// they are written). The head (a 320-wide dot per row, a warp's rows at
+// once) and the encoding and angle gradients stay on the CUDA cores. 8
+// barriers per 32-row tile. Latency and not the tensor cores bounds it; the
+// features' sincosf, the d-feature epilogue and the dW1 products are its
+// largest phases.
+//
+// F32 (field_grad_f32_kernel): CUDA-core FMA loops on the shared field of
+// onf_common.cuh (132.6 KB of f32 weights, 32-row transposed tiles); dW2
+// accumulates on chip in registers (thread (column, row group) owns its
+// column's share of dW2 over all tiles, at most 64 values), and dW1, which
+// fits in neither, is added into the problem's own output slice once per
+// tile (the first tile stores, later ones read-modify-write, each element by
+// the same thread). A one-pass TF32 product would miss the f32 tolerances.
 #pragma once
 
+#include "mma.cuh"
 #include "onf_common.cuh"
 
 namespace nf {
@@ -28,6 +71,22 @@ namespace nf {
 struct Grads {
   float *ew, *eb, *w1, *b1, *w2, *b2, *w3, *b3, *ab;
 };
+
+// A cast weight's gradient, rounded once after its f32 sum over all points
+// under BF16_APPLY; f32 otherwise.
+template <int P>
+__device__ __forceinline__ float rnd_cast(float v) {
+  return P == BF16_APPLY ? rnd<P>(v) : v;
+}
+
+// g as the operand of out.w's gradient: rounded under BF16_MULTI; f32 under
+// F32 and BF16_APPLY (whose sum is rounded at the end)
+template <int P>
+__device__ __forceinline__ float w3_operand(float g) {
+  return P == BF16_MULTI ? rnd<P>(g) : g;
+}
+
+// ------------------------------------------------------------------ F32 ----
 
 // Offsets of the shared-memory gradient accumulators, relative to Layout.acc.
 struct GradLayout {
@@ -48,14 +107,10 @@ __host__ __device__ inline GradLayout grad_layout(const NetArgs& n) {
   return G;
 }
 
-// out[k][c] (+)= sum_r aT[k][r] * bT[c][r] for k < K, c < N: thread (c, part)
-// holds column c of bT in registers and walks its share of k. The first tile
-// stores, later tiles add to what the same thread stored.
-__device__ inline void outer_accumulate(const float* aT, int K, const float* bT, int N,
-                                        float* __restrict__ out, bool first) {
-  const int c = threadIdx.x % CSLOTS, part = threadIdx.x / CSLOTS;
-  if (c >= N) return;
-  float bc[TM];
+constexpr int MAX_DW2 = CSLOTS / RGROUPS;  // dW2 rows a thread owns (hidden <= 128)
+
+// Column c of a transposed tile (TM rows) into registers.
+__device__ __forceinline__ void load_column(const float* bT, int c, float bc[TM]) {
   const float4* bp = reinterpret_cast<const float4*>(bT + c * LDT);
 #pragma unroll
   for (int q = 0; q < TM / 4; ++q) {
@@ -65,42 +120,30 @@ __device__ inline void outer_accumulate(const float* aT, int K, const float* bT,
     bc[4 * q + 2] = v.z;
     bc[4 * q + 3] = v.w;
   }
-  const int per = (K + RGROUPS - 1) / RGROUPS;
-  const int k0 = part * per, k1 = min(K, k0 + per);
-  for (int k = k0; k < k1; ++k) {
-    const float4* ap = reinterpret_cast<const float4*>(aT + k * LDT);
-    float acc = 0.f;
-#pragma unroll
-    for (int q = 0; q < TM / 4; ++q) {
-      const float4 v = ap[q];
-      acc = fmaf(v.x, bc[4 * q], acc);
-      acc = fmaf(v.y, bc[4 * q + 1], acc);
-      acc = fmaf(v.z, bc[4 * q + 2], acc);
-      acc = fmaf(v.w, bc[4 * q + 3], acc);
-    }
-    float* p = out + (size_t)k * N + c;
-    *p = first ? acc : *p + acc;
-  }
 }
 
-// acc += sum of column colT's TM rows (f32), then the column rounded in place
-// under the bf16 modes: it is the operand of the products that follow.
-template <int P>
-__device__ inline void row_sum_then_round(float* colT, float* acc) {
-  float sum = 0.f;
+// sum_r aT[k][r] * bc[r] over the tile's TM rows
+__device__ __forceinline__ float dot_rows(const float* aT, int k, const float bc[TM]) {
+  const float4* ap = reinterpret_cast<const float4*>(aT + k * LDT);
+  float acc = 0.f;
 #pragma unroll
-  for (int r = 0; r < TM; ++r) sum += colT[r];
-  *acc += sum;
-  if constexpr (P != F32) {
-#pragma unroll
-    for (int r = 0; r < TM; ++r) colT[r] = rnd<P>(colT[r]);
+  for (int q = 0; q < TM / 4; ++q) {
+    const float4 v = ap[q];
+    acc = fmaf(v.x, bc[4 * q], acc);
+    acc = fmaf(v.y, bc[4 * q + 1], acc);
+    acc = fmaf(v.z, bc[4 * q + 2], acc);
+    acc = fmaf(v.w, bc[4 * q + 3], acc);
   }
+  return acc;
 }
 
+// (a template, instantiated for F32 only, so that the header can be included
+// by several translation units)
 template <int P>
 __global__ void __launch_bounds__(THREADS, 1)
-field_grad_kernel(const float* __restrict__ x, const float* __restrict__ y, int M, int dim,
-                  NetArgs n, float* __restrict__ loss, Grads gr) {
+field_grad_f32_kernel(const float* __restrict__ x, const float* __restrict__ y, int M, int dim,
+                      NetArgs n, float* __restrict__ loss, Grads gr) {
+  static_assert(P == F32, "the bf16 modes run field_grad_tc_kernel");
   extern __shared__ float4 smem_f4[];
   float* s = reinterpret_cast<float*>(smem_f4);
   const GradLayout G = grad_layout(n);
@@ -109,19 +152,23 @@ field_grad_kernel(const float* __restrict__ x, const float* __restrict__ y, int 
   const int lane = tid % 32, cs = tid % CSLOTS, rg = tid / CSLOTS, r0 = rg * RPT;
   const int F = n.F, A = n.A, HID = n.HID, FEAT = L.FEAT;
   float* acc_s = s + L.acc;
-  load_weights<P>(n, L, b, s);
+  load_weights<F32>(n, L, b, s);
   for (int i = tid; i < G.size; i += THREADS) acc_s[i] = 0.f;
   x += (size_t)b * M * dim;
   y += (size_t)b * M;
   float* gw1 = gr.w1 + (size_t)b * FEAT * HID;
-  float* gw2 = gr.w2 + (size_t)b * HID * HID;
   const float inv_n = 1.f / (float)M;
   float loss_sum = 0.f;  // held by thread 0
+  // dW2[k][cs] for k in [k2, k2 + per2): this thread's share, over all tiles
+  const int per2 = (HID + RGROUPS - 1) / RGROUPS, k2 = rg * per2;
+  float dw2[MAX_DW2];
+#pragma unroll
+  for (int q = 0; q < MAX_DW2; ++q) dw2[q] = 0.f;
 
   for (int row0 = 0; row0 < M; row0 += TM) {
     const bool first = row0 == 0;
-    forward_tile<P>(x, M, dim, row0, n, L, s);
-    // loss and d logits per row (f32)
+    forward_tile<F32>(x, M, dim, row0, n, L, s);
+    // loss and d logits per row
     if (tid < 32) {
       const int row = row0 + lane;
       float bce = 0.f, gv = 0.f;
@@ -134,13 +181,12 @@ field_grad_kernel(const float* __restrict__ x, const float* __restrict__ y, int 
       loss_sum += warp_sum(bce);
     }
     __syncthreads();
-    // out.w from g (rounded as an operand) and the head's inputs [h2 |
-    // features]; out.b from the f32 g
+    // out.w from g and the head's inputs [h2 | features]; out.b from g
     for (int j = tid; j < HID + FEAT; j += THREADS) {
       const float* a = j < HID ? s + L.h2 + j * LDT : s + L.feat + (j - HID) * LDT;
       float acc = 0.f;
 #pragma unroll
-      for (int r = 0; r < TM; ++r) acc = fmaf(a[r], rnd<P>(s[L.g + r]), acc);
+      for (int r = 0; r < TM; ++r) acc = fmaf(a[r], s[L.g + r], acc);
       acc_s[G.w3 + j] += acc;
     }
     if (tid == 0) {
@@ -150,17 +196,45 @@ field_grad_kernel(const float* __restrict__ x, const float* __restrict__ y, int 
       acc_s[G.b3] += sum;
     }
     __syncthreads();
-    head_backprop<P>(n, L, s);  // h2 := d pre2
+    head_backprop<F32>(n, L, s);  // h2 := d pre2
     __syncthreads();
-    if (tid < HID) row_sum_then_round<P>(s + L.h2 + tid * LDT, acc_s + G.b2 + tid);
+    // d b2; d W2 += h1^T d pre2 in this thread's registers
+    if (cs < HID) {
+      float bc[TM];
+      load_column(s + L.h2, cs, bc);
+      if (rg == 0) {
+        float sum = 0.f;
+#pragma unroll
+        for (int r = 0; r < TM; ++r) sum += bc[r];
+        acc_s[G.b2 + cs] += sum;
+      }
+#pragma unroll
+      for (int q = 0; q < MAX_DW2; ++q) {
+        const int k = k2 + q;
+        if (q < per2 && k < HID) dw2[q] += dot_rows(s + L.h1, k, bc);
+      }
+    }
     __syncthreads();
-    outer_accumulate(s + L.h1, HID, s + L.h2, HID, gw2, first);  // d W2 = h1^T d pre2
+    relu_backprop<F32>(s + L.h2, HID, s + L.w2, L.ldw2, HID, s + L.h1);  // h1 := d pre1
     __syncthreads();
-    relu_backprop<P>(s + L.h2, HID, s + L.w2, L.ldw2, HID, s + L.h1);  // h1 := d pre1
-    __syncthreads();
-    if (tid < HID) row_sum_then_round<P>(s + L.h1 + tid * LDT, acc_s + G.b1 + tid);
-    __syncthreads();
-    outer_accumulate(s + L.feat, FEAT, s + L.h1, HID, gw1, first);  // d W1 = feat^T d pre1
+    // d b1; d W1 += feat^T d pre1 into the output slice
+    if (cs < HID) {
+      float bc[TM];
+      load_column(s + L.h1, cs, bc);
+      if (rg == 0) {
+        float sum = 0.f;
+#pragma unroll
+        for (int r = 0; r < TM; ++r) sum += bc[r];
+        acc_s[G.b1 + cs] += sum;
+      }
+      const int per = (FEAT + RGROUPS - 1) / RGROUPS;
+      const int k0 = rg * per, k1 = min(FEAT, k0 + per);
+      for (int k = k0; k < k1; ++k) {
+        const float acc = dot_rows(s + L.feat, k, bc);
+        float* p = gw1 + (size_t)k * HID + cs;
+        *p = first ? acc : *p + acc;
+      }
+    }
     // d features -> encoding and angle-bias gradients, summed over the
     // thread's rows, then added by one row group at a time
     float p0[2], p1[2], p2[2];
@@ -170,7 +244,7 @@ field_grad_kernel(const float* __restrict__ x, const float* __restrict__ y, int 
       float a0 = 0.f, a1 = 0.f, a2 = 0.f;
       if (k < FEAT) {
         float acc[RPT];
-        feature_grad<P>(n, L, s, k, acc);
+        feature_grad<F32>(n, L, s, k, acc);
 #pragma unroll
         for (int q = 0; q < RPT; ++q) {
           const int r = r0 + q;
@@ -207,6 +281,14 @@ field_grad_kernel(const float* __restrict__ x, const float* __restrict__ y, int 
     }
   }
 
+  if (cs < HID) {
+    float* gw2 = gr.w2 + (size_t)b * HID * HID;
+#pragma unroll
+    for (int q = 0; q < MAX_DW2; ++q) {
+      const int k = k2 + q;
+      if (q < per2 && k < HID) gw2[(size_t)k * HID + cs] = dw2[q];
+    }
+  }
   const size_t hf = (size_t)(HID + FEAT);
   for (int j = tid; j < HID + FEAT; j += THREADS) gr.w3[b * hf + j] = acc_s[G.w3 + j];
   for (int j = tid; j < HID; j += THREADS) {
@@ -223,15 +305,545 @@ field_grad_kernel(const float* __restrict__ x, const float* __restrict__ y, int 
   }
 }
 
+// ----------------------------------------------------- bf16, tensor cores ----
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int TR = 32;             // rows per tile: two m16 MMA tiles
+constexpr int MT = TR / 16;        // m16 tiles per row tile
+// 16 warps, at the 128 registers each that the register file allows them:
+// with one CTA per SM, more warps hide more latency; 8, 12, 24 and 32 warps
+// ran slower (32 spilled)
+constexpr int TC_THREADS = 512;
+constexpr int TC_WARPS = TC_THREADS / 32;
+constexpr int MAX_W1_TILES = 12;   // dW1 16x8 tiles per warp held in registers (192 per CTA)
+
+// Byte offsets of one CTA's shared memory (each 16-byte aligned) and the
+// padded sizes: K* are multiples of 16 (MMA depth), N* counts of 8-column
+// tiles, M* of 16-row tiles; ld* are row strides in elements.
+struct TcLayout {
+  int FEAT, KF, KH, NH, NF, MF, MH, ldf, ldh, ldg;
+  int w1, w2, feat, h1, h2, dp1, slope, dw2;
+  int w3, ew, eb, b1, b2, ab, xn, yn, th, g, bce;
+  int gw3, gb1, gb2, gew, geb, gab;
+  int total;
+};
+
+__host__ __device__ inline int take_bytes(int& offset, int bytes) {
+  const int at = offset;
+  offset += (bytes + 15) & ~15;
+  return at;
+}
+
+__host__ __device__ inline TcLayout tc_layout(const NetArgs& n) {
+  TcLayout L;
+  const int F = n.F, A = n.A, HID = n.HID;
+  L.FEAT = F + A;
+  L.KF = (L.FEAT + 15) & ~15;
+  L.KH = (HID + 15) & ~15;
+  L.NH = (HID + 7) / 8;
+  L.NF = (L.FEAT + 7) / 8;
+  L.MF = L.KF / 16;
+  L.MH = L.KH / 16;
+  L.ldf = L.KF + 8;  // a row is an odd number of 16-byte units
+  L.ldh = L.KH + 8;
+  L.ldg = L.NH * 8;
+  int o = 0;
+  L.w1 = take_bytes(o, L.KF * L.ldh * 2);   // W1 [feature][hidden] bf16
+  L.w2 = take_bytes(o, L.KH * L.ldh * 2);   // W2 [hidden][hidden] bf16
+  L.feat = take_bytes(o, TR * L.ldf * 2);   // features [row][feature] bf16
+  L.h1 = take_bytes(o, TR * L.ldh * 2);     // h1 [row][hidden] bf16
+  L.h2 = take_bytes(o, TR * L.ldh * 2);     // h2, then d pre2
+  L.dp1 = take_bytes(o, TR * L.ldh * 2);    // d pre1
+  L.slope = take_bytes(o, TR * L.ldf * 4);  // d feature / d its pre-activation, f32
+  L.dw2 = take_bytes(o, L.KH * L.ldg * 4);  // dW2 [hidden][hidden] f32 sum
+  L.w3 = take_bytes(o, (HID + L.FEAT) * 4);
+  L.ew = take_bytes(o, 2 * F * 4);
+  L.eb = take_bytes(o, F * 4);
+  L.b1 = take_bytes(o, L.KH * 4);
+  L.b2 = take_bytes(o, L.KH * 4);
+  L.ab = take_bytes(o, A * 4);
+  L.xn = take_bytes(o, TR * 4);
+  L.yn = take_bytes(o, TR * 4);
+  L.th = take_bytes(o, TR * 4);
+  L.g = take_bytes(o, TR * 4);
+  L.bce = take_bytes(o, TR * 4);
+  L.gw3 = take_bytes(o, (HID + L.FEAT) * 4);
+  L.gb1 = take_bytes(o, HID * 4);
+  L.gb2 = take_bytes(o, HID * 4);
+  L.gew = take_bytes(o, 2 * F * 4);
+  L.geb = take_bytes(o, F * 4);
+  L.gab = take_bytes(o, A * 4);
+  L.total = o;
+  return L;
+}
+
+// Fragment loads (mma.cuh): A m16 x k16 at (m0, k0) of a row-major tile X
+// [m][k], or of A = S^T for a row-major S [k][m]; B k16 x n8 at (k0, n0) of
+// B = T^T for a row-major T [n][k], or of a row-major S [k][n].
+__device__ __forceinline__ void load_a(uint32_t a[4], const bf16* X, int ld, int m0, int k0) {
+  const int lane = threadIdx.x % 32, mi = lane / 8, rr = lane % 8;
+  ldsm_x4(a, X + (m0 + (mi & 1) * 8 + rr) * ld + k0 + (mi >> 1) * 8);
+}
+
+__device__ __forceinline__ void load_a_trans(uint32_t a[4], const bf16* S, int ld, int m0,
+                                             int k0) {
+  const int lane = threadIdx.x % 32, mi = lane / 8, rr = lane % 8;
+  ldsm_x4_trans(a, S + (k0 + (mi >> 1) * 8 + rr) * ld + m0 + (mi & 1) * 8);
+}
+
+__device__ __forceinline__ void load_b(uint32_t b[2], const bf16* T, int ld, int n0, int k0) {
+  const int lane = threadIdx.x % 32, mi = (lane / 8) & 1, rr = lane % 8;
+  ldsm_x2(b, T + (n0 + rr) * ld + k0 + mi * 8);
+}
+
+__device__ __forceinline__ void load_b_trans(uint32_t b[2], const bf16* S, int ld, int n0,
+                                             int k0) {
+  const int lane = threadIdx.x % 32, mi = (lane / 8) & 1, rr = lane % 8;
+  ldsm_x2_trans(b, S + (k0 + mi * 8 + rr) * ld + n0);
+}
+
+__device__ __forceinline__ float bf(bf16 v) { return __bfloat162float(v); }
+
+__device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// Sum of v over the 8 lanes that share lane % 4 (the rows g of an
+// accumulator fragment), in a fixed order.
+__device__ __forceinline__ float sum_over_rows(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  v += __shfl_xor_sync(0xffffffffu, v, 16);
+  return v;
+}
+
+// acc[j][m] (m16 tile m of the row tile) += X [TR x K] . B [K x 8] at
+// columns 8 (nt + WARPS j), for the pair of 8-column tiles nt and nt + WARPS (the
+// second when `both`): B = W for a row-major W [k][n] (TRANS_W false), or
+// B = W^T for a row-major W [n][k] (TRANS_W true). The pair shares the A
+// fragments and gives four independent accumulator chains.
+template <bool TRANS_W>
+__device__ __forceinline__ void pair_product(float acc[2][MT][4], const bf16* X, int ldx, int K,
+                                             const bf16* W, int ldw, int nt, bool both) {
+  for (int k0 = 0; k0 < K; k0 += 16) {
+    uint32_t b[2][2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if (j == 0 || both) {
+        if constexpr (TRANS_W) {
+          load_b(b[j], W, ldw, (nt + TC_WARPS * j) * 8, k0);
+        } else {
+          load_b_trans(b[j], W, ldw, (nt + TC_WARPS * j) * 8, k0);
+        }
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      uint32_t a[4];
+      load_a(a, X, ldx, m * 16, k0);
+      mma_bf16(acc[0][m], a, b[0]);
+      if (both) mma_bf16(acc[1][m], a, b[1]);
+    }
+  }
+}
+
+// acc += S1^T [16 x TR] . S2 [TR x 8] for row-major tiles S1, S2
+// [row][column]: columns m0.. of S1 against columns n0.. of S2, summed over
+// the tile's rows (one 16 x 8 tile of a weight gradient).
+__device__ __forceinline__ void tile_outer(float acc[4], const bf16* S1, int ld1, int m0,
+                                           const bf16* S2, int ld2, int n0) {
+#pragma unroll
+  for (int k0 = 0; k0 < TR; k0 += 16) {
+    uint32_t a[4], b[2];
+    load_a_trans(a, S1, ld1, m0, k0);
+    load_b_trans(b, S2, ld2, n0, k0);
+    mma_bf16(acc, a, b);
+  }
+}
+
+// O [TR x 8 NH] = bf16(relu(X . W + bias)) for a row-major W [k][n]; a warp
+// computes the 8-column tiles warp + 8 j, two at a time.
+__device__ inline void tc_dense_relu(const bf16* X, int ldx, int K, const bf16* W, int ldw,
+                                     const float* bias, int NH, bf16* O, int ldo) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  for (int nt = warp; nt < NH; nt += 2 * TC_WARPS) {
+    const bool both = nt + TC_WARPS < NH;
+    float acc[2][MT][4] = {};
+    pair_product<false>(acc, X, ldx, K, W, ldw, nt, both);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if (j == 1 && !both) break;
+      const int c = (nt + TC_WARPS * j) * 8 + 2 * t;
+      const float b0 = bias[c], b1 = bias[c + 1];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const int r = m * 16 + g;
+        store_pair(O + r * ldo + c, fmaxf(acc[j][m][0] + b0, 0.f), fmaxf(acc[j][m][1] + b1, 0.f));
+        store_pair(O + (r + 8) * ldo + c, fmaxf(acc[j][m][2] + b0, 0.f),
+                   fmaxf(acc[j][m][3] + b1, 0.f));
+      }
+    }
+  }
+}
+
+// dst[k * ld + c] = bf16(src[k * cols + c]) for a row-major src [rows][cols]
+// four values per load where cols and the alignment allow it
+__device__ inline void load_bf16_rows(bf16* dst, int ld, const float* __restrict__ src, int rows,
+                                      int cols) {
+  if (cols % 4 == 0 && reinterpret_cast<size_t>(src) % 16 == 0) {
+    const float4* src4 = reinterpret_cast<const float4*>(src);
+    for (int i = threadIdx.x; i < rows * cols / 4; i += TC_THREADS) {
+      const float4 v = src4[i];
+      const int k = 4 * i / cols, c = 4 * i - k * cols;
+      store_pair(dst + k * ld + c, v.x, v.y);
+      store_pair(dst + k * ld + c + 2, v.z, v.w);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * cols; i += TC_THREADS) {
+      const int k = i / cols, c = i - k * cols;
+      dst[k * ld + c] = __float2bfloat16_rn(src[i]);
+    }
+  }
+}
+
+template <int P>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+field_grad_tc_kernel(const float* __restrict__ x, const float* __restrict__ y, int M, int dim,
+                     NetArgs n, float* __restrict__ loss, Grads gr) {
+  extern __shared__ float4 smem_f4[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(smem_f4);
+  const TcLayout L = tc_layout(n);
+  const int b = blockIdx.x, tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int F = n.F, A = n.A, HID = n.HID, FEAT = L.FEAT, NH = L.NH;
+  bf16* w1 = reinterpret_cast<bf16*>(sm + L.w1);
+  bf16* w2 = reinterpret_cast<bf16*>(sm + L.w2);
+  bf16* feat = reinterpret_cast<bf16*>(sm + L.feat);
+  bf16* h1 = reinterpret_cast<bf16*>(sm + L.h1);
+  bf16* h2 = reinterpret_cast<bf16*>(sm + L.h2);
+  bf16* dp1 = reinterpret_cast<bf16*>(sm + L.dp1);
+  float* slope = reinterpret_cast<float*>(sm + L.slope);
+  float* dw2 = reinterpret_cast<float*>(sm + L.dw2);
+  float* w3 = reinterpret_cast<float*>(sm + L.w3);
+  float* ew = reinterpret_cast<float*>(sm + L.ew);
+  float* eb = reinterpret_cast<float*>(sm + L.eb);
+  float* b1 = reinterpret_cast<float*>(sm + L.b1);
+  float* b2 = reinterpret_cast<float*>(sm + L.b2);
+  float* ab = reinterpret_cast<float*>(sm + L.ab);
+  float* xn = reinterpret_cast<float*>(sm + L.xn);
+  float* yn = reinterpret_cast<float*>(sm + L.yn);
+  float* th = reinterpret_cast<float*>(sm + L.th);
+  float* gs = reinterpret_cast<float*>(sm + L.g);
+  float* bces = reinterpret_cast<float*>(sm + L.bce);
+  float* gw3 = reinterpret_cast<float*>(sm + L.gw3);
+  float* gb1 = reinterpret_cast<float*>(sm + L.gb1);
+  float* gb2 = reinterpret_cast<float*>(sm + L.gb2);
+  float* gew = reinterpret_cast<float*>(sm + L.gew);
+  float* geb = reinterpret_cast<float*>(sm + L.geb);
+  float* gab = reinterpret_cast<float*>(sm + L.gab);
+
+  // zero everything: padding rows and columns stay zero, sums start at zero
+  for (int i = tid; i < L.total / 16; i += TC_THREADS) smem_f4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
+  // problem b's weights: W1, W2 rounded into bf16, out.w rounded, the
+  // encoding weights rounded under BF16_APPLY, biases f32
+  {
+    load_bf16_rows(w1, L.ldh, n.w1 + (size_t)b * FEAT * HID, FEAT, HID);
+    load_bf16_rows(w2, L.ldh, n.w2 + (size_t)b * HID * HID, HID, HID);
+    for (int i = tid; i < HID + FEAT; i += TC_THREADS)
+      w3[i] = rnd<P>(n.w3[(size_t)b * (HID + FEAT) + i]);
+    for (int i = tid; i < 2 * F; i += TC_THREADS) ew[i] = rnd_enc<P>(n.ew[(size_t)b * 2 * F + i]);
+    for (int i = tid; i < F; i += TC_THREADS) eb[i] = n.eb[(size_t)b * F + i];
+    for (int i = tid; i < HID; i += TC_THREADS) {
+      b1[i] = n.b1[(size_t)b * HID + i];
+      b2[i] = n.b2[(size_t)b * HID + i];
+    }
+    for (int i = tid; i < A; i += TC_THREADS) ab[i] = n.ab[(size_t)b * A + i];
+  }
+  const float b3 = n.b3[b];
+  x += (size_t)b * M * dim;
+  y += (size_t)b * M;
+  const float inv_n = 1.f / (float)M;
+  float loss_sum = 0.f, b3_sum = 0.f;  // held by thread 0
+  const int w2_tiles = L.MH * NH, w1_tiles = L.MF * NH;
+  float dw1[MAX_W1_TILES][4];  // this warp's dW1 tiles: warp + 8 q
+#pragma unroll
+  for (int q = 0; q < MAX_W1_TILES; ++q) dw1[q][0] = dw1[q][1] = dw1[q][2] = dw1[q][3] = 0.f;
+
+  for (int row0 = 0; row0 < M; row0 += TR) {
+    // rows row0 .. row0 + TR, normalised (rounded under BF16_APPLY); rows
+    // past M read as the origin, and their g is zero
+    if (tid < TR) {
+      const int row = row0 + tid;
+      float px = 0.f, py = 0.f, pt = 0.f;
+      if (row < M) {
+        const float* p = x + (size_t)row * dim;
+        px = p[0];
+        py = p[1];
+        if (dim > 2) pt = p[2];
+      }
+      xn[tid] = rnd_enc<P>((px - n.mean) / n.sigma);
+      yn[tid] = rnd_enc<P>((py - n.mean) / n.sigma);
+      th[tid] = pt;
+    }
+    __syncthreads();
+    // features [row][k], rounded (product operands), and in f32 the slope
+    // of each (d feature / d its pre-activation) for the encoding gradients;
+    // warp w takes rows w + 16 q, its lanes the features
+    for (int r = warp; r < TR; r += TC_WARPS) {
+      const float xr = xn[r], yr = yn[r], tr = th[r];
+      for (int k = lane; k < FEAT; k += 32) {
+        float arg;
+        bool is_cos;
+        if (k < F) {
+          arg = xr * ew[k] + yr * ew[F + k];
+          if (n.bias) arg += eb[k];
+          is_cos = n.use_cos && k >= F / 2;
+        } else {
+          const int a = k - F;
+          arg = (tr + ab[a]) * (float)(a % (A / 2) + 1);
+          is_cos = a >= A / 2;
+        }
+        float sv, cv;
+        sincosf(arg, &sv, &cv);
+        feat[r * L.ldf + k] = __float2bfloat16_rn(is_cos ? cv : sv);
+        slope[r * L.ldf + k] = is_cos ? -sv : cv;
+      }
+    }
+    __syncthreads();
+    tc_dense_relu(feat, L.ldf, L.KF, w1, L.ldh, b1, NH, h1, L.ldh);
+    __syncthreads();
+    tc_dense_relu(h1, L.ldh, L.KH, w2, L.ldh, b2, NH, h2, L.ldh);
+    __syncthreads();
+    // head z = [h2 | features] . out.w + out.b, then the loss and d logits
+    // of each row: warp w takes rows w + 16 q, both at once, and lane q
+    // finishes row w + 16 q
+    {
+      constexpr int RW = TR / TC_WARPS;
+      static_assert(TR % TC_WARPS == 0, "every warp takes as many rows");
+      float acc[RW] = {};
+      for (int j = lane; j < HID; j += 32) {
+        const float w = w3[j];
+#pragma unroll
+        for (int q = 0; q < RW; ++q)
+          acc[q] = fmaf(bf(h2[(warp + q * TC_WARPS) * L.ldh + j]), w, acc[q]);
+      }
+      for (int k = lane; k < FEAT; k += 32) {
+        const float w = w3[HID + k];
+#pragma unroll
+        for (int q = 0; q < RW; ++q)
+          acc[q] = fmaf(bf(feat[(warp + q * TC_WARPS) * L.ldf + k]), w, acc[q]);
+      }
+      float z = 0.f;
+#pragma unroll
+      for (int q = 0; q < RW; ++q) {
+        acc[q] = warp_sum(acc[q]);
+        if (lane == q) z = acc[q] + b3;
+      }
+      if (lane < RW) {
+        const int r = warp + lane * TC_WARPS, row = row0 + r;
+        float bce = 0.f, gv = 0.f;
+        if (row < M) {
+          const float yt = y[row];
+          bce = fmaxf(z, 0.f) - z * yt + log1pf(expf(-fabsf(z)));
+          gv = (1.f / (1.f + expf(-z)) - yt) * inv_n;
+        }
+        gs[r] = gv;
+        bces[r] = bce;
+      }
+    }
+    __syncthreads();
+    // out.w's gradient from g and [h2 | features]; h2 := d pre2 (the rounded
+    // operand), d b2 summing its f32 value; out.b and the loss by thread 0
+    for (int j = tid; j < HID + FEAT; j += TC_THREADS) {
+      float acc = 0.f;
+      if (j < HID) {
+        const float w = w3[j];
+        float sum = 0.f;
+        for (int r = 0; r < TR; ++r) {
+          bf16* hp = h2 + r * L.ldh + j;
+          const float h = bf(*hp), gv = gs[r];
+          acc = fmaf(h, w3_operand<P>(gv), acc);
+          const float d = h > 0.f ? head_cotangent<P>(gv, w) : 0.f;
+          sum += d;
+          *hp = __float2bfloat16_rn(d);
+        }
+        gb2[j] += sum;
+      } else {
+        const bf16* fp = feat + (j - HID);
+        for (int r = 0; r < TR; ++r) acc = fmaf(bf(fp[r * L.ldf]), w3_operand<P>(gs[r]), acc);
+      }
+      gw3[j] += acc;
+    }
+    if (tid == 0) {
+      for (int r = 0; r < TR; ++r) {
+        b3_sum += gs[r];
+        loss_sum += bces[r];
+      }
+    }
+    __syncthreads();
+    // d W2 += h1^T d pre2 into the f32 sum in shared memory
+    for (int i = warp; i < w2_tiles; i += TC_WARPS) {
+      const int j = (i / NH) * 16 + g, c = (i % NH) * 8 + 2 * t;
+      float acc[4] = {};
+      tile_outer(acc, h1, L.ldh, (i / NH) * 16, h2, L.ldh, (i % NH) * 8);
+      float2* p = reinterpret_cast<float2*>(dw2 + j * L.ldg + c);
+      *p = make_float2(p->x + acc[0], p->y + acc[1]);
+      p = reinterpret_cast<float2*>(dw2 + (j + 8) * L.ldg + c);
+      *p = make_float2(p->x + acc[2], p->y + acc[3]);
+    }
+    // d pre1 = [h1 > 0] * (d pre2 . W2^T), rounded as it is written; d b1
+    // sums it after the rounding under BF16_APPLY, before it under BF16_MULTI
+    for (int nt = warp; nt < NH; nt += TC_WARPS) {
+      float acc[2][MT][4] = {};
+      pair_product<true>(acc, h2, L.ldh, L.KH, w2, L.ldh, nt, false);
+      const int c = nt * 8 + 2 * t;
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = m * 16 + g + 8 * half;
+          const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(h1 + r * L.ldh + c);
+          constexpr int R = P == BF16_APPLY ? P : F32;
+          const float v0 = bf(h.x) > 0.f ? rnd<R>(acc[0][m][2 * half]) : 0.f;
+          const float v1 = bf(h.y) > 0.f ? rnd<R>(acc[0][m][2 * half + 1]) : 0.f;
+          s0 += v0;
+          s1 += v1;
+          store_pair(dp1 + r * L.ldh + c, v0, v1);
+        }
+      }
+      s0 = sum_over_rows(s0);
+      s1 = sum_over_rows(s1);
+      if (g == 0) {
+        if (c < HID) gb1[c] += s0;
+        if (c + 1 < HID) gb1[c + 1] += s1;
+      }
+    }
+    __syncthreads();
+    // d W1 += feat^T d pre1 in this warp's accumulators
+#pragma unroll
+    for (int q = 0; q < MAX_W1_TILES; ++q) {
+      const int i = warp + q * TC_WARPS;
+      if (i < w1_tiles) tile_outer(dw1[q], feat, L.ldf, (i / NH) * 16, dp1, L.ldh, (i % NH) * 8);
+    }
+    // d features = d pre1 . W1^T + g out.w (each term rounded on its own
+    // under BF16_APPLY), through the encoding: the encoding and angle-bias
+    // gradients of each feature column
+    for (int nt0 = warp; nt0 < L.NF; nt0 += 2 * TC_WARPS) {
+      const bool both = nt0 + TC_WARPS < L.NF;
+      float accs[2][MT][4] = {};
+      pair_product<true>(accs, dp1, L.ldh, L.KH, w1, L.ldh, nt0, both);
+#pragma unroll
+      for (int je = 0; je < 4; ++je) {
+        const int j = je / 2, e = je % 2;
+        if (j == 1 && !both) break;
+        const float (*acc)[4] = accs[j];
+        const int k = (nt0 + TC_WARPS * j) * 8 + 2 * t + e;
+        float a0 = 0.f, a1 = 0.f, a2 = 0.f;
+        if (k < FEAT) {
+          const float w = w3[HID + k];
+#pragma unroll
+          for (int m = 0; m < MT; ++m) {
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              const int r = m * 16 + g + 8 * half;
+              const float sum = acc[m][2 * half + e], gv = gs[r];
+              const float df = P == BF16_APPLY ? rnd<P>(sum) + head_cotangent<P>(gv, w)
+                                               : fmaf(rnd<P>(gv), w, sum);
+              const float d = slope[r * L.ldf + k] * df;
+              if (k < F) {
+                a0 = fmaf(xn[r], d, a0);
+                a1 = fmaf(yn[r], d, a1);
+                a2 += d;
+              } else {
+                a2 = fmaf(d, (float)((k - F) % (A / 2) + 1), a2);
+              }
+            }
+          }
+        }
+        a0 = sum_over_rows(a0);
+        a1 = sum_over_rows(a1);
+        a2 = sum_over_rows(a2);
+        if (g == 0 && k < FEAT) {
+          if (k < F) {
+            gew[k] += a0;
+            gew[F + k] += a1;
+            geb[k] += a2;
+          } else {
+            gab[k - F] += a2;
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // every gradient written once; the cast weights' rounded under BF16_APPLY.
+  // dW1 goes from the accumulators through shared memory (the weights' space,
+  // free now) so that its rows are written whole
+  float* stage = reinterpret_cast<float*>(sm);
+#pragma unroll
+  for (int q = 0; q < MAX_W1_TILES; ++q) {
+    const int i = warp + q * TC_WARPS;
+    if (i < w1_tiles) {
+      const int k = (i / NH) * 16 + g, c = (i % NH) * 8 + 2 * t;
+      *reinterpret_cast<float2*>(stage + k * L.ldg + c) = make_float2(dw1[q][0], dw1[q][1]);
+      *reinterpret_cast<float2*>(stage + (k + 8) * L.ldg + c) = make_float2(dw1[q][2], dw1[q][3]);
+    }
+  }
+  __syncthreads();
+  float* gw1 = gr.w1 + (size_t)b * FEAT * HID;
+  for (int i = tid; i < FEAT * HID; i += TC_THREADS) {
+    const int k = i / HID, c = i - k * HID;
+    gw1[i] = rnd_cast<P>(stage[k * L.ldg + c]);
+  }
+  float* gw2 = gr.w2 + (size_t)b * HID * HID;
+  for (int i = tid; i < HID * HID; i += TC_THREADS) {
+    const int j = i / HID, c = i - j * HID;
+    gw2[i] = rnd_cast<P>(dw2[j * L.ldg + c]);
+  }
+  const size_t hf = (size_t)(HID + FEAT);
+  for (int j = tid; j < HID + FEAT; j += TC_THREADS) gr.w3[b * hf + j] = rnd_cast<P>(gw3[j]);
+  for (int j = tid; j < HID; j += TC_THREADS) {
+    gr.b1[(size_t)b * HID + j] = gb1[j];
+    gr.b2[(size_t)b * HID + j] = gb2[j];
+  }
+  for (int j = tid; j < 2 * F; j += TC_THREADS) gr.ew[(size_t)b * 2 * F + j] = rnd_cast<P>(gew[j]);
+  // bias=False: the encoding bias is not trainable and its gradient is zero
+  for (int j = tid; j < F; j += TC_THREADS) gr.eb[(size_t)b * F + j] = n.bias ? geb[j] : 0.f;
+  for (int j = tid; j < A; j += TC_THREADS) gr.ab[(size_t)b * A + j] = gab[j];
+  if (tid == 0) {
+    gr.b3[b] = b3_sum;
+    loss[b] = loss_sum * inv_n;
+  }
+}
+
+// ------------------------------------------------------------- launches ----
+
 template <int P>
 inline int launch_field_grad(const NetArgs* net, const float* x, const float* y, int B, int M,
                              int dim, float* loss, const Grads* grads, void* stream) {
-  const Layout L = make_layout(*net, grad_layout(*net).size);
-  size_t bytes;
-  cudaError_t err = prepare_launch(field_grad_kernel<P>, L, &bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  field_grad_kernel<P><<<B, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
-      x, y, M, dim, *net, loss, *grads);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if constexpr (P == F32) {
+    const Layout L = make_layout(*net, grad_layout(*net).size);
+    size_t bytes;
+    const cudaError_t err = prepare_launch(field_grad_f32_kernel<F32>, L, &bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    field_grad_f32_kernel<F32><<<B, THREADS, bytes, s>>>(x, y, M, dim, *net, loss, *grads);
+  } else {
+    const TcLayout L = tc_layout(*net);
+    const size_t bytes = (size_t)L.total;
+    // (dW1 is staged at the start of shared memory, below dW2, at the end)
+    if (bytes > (size_t)MAX_SMEM || L.MF * L.NH > MAX_W1_TILES * TC_WARPS ||
+        L.KF * L.ldg * 4 > L.dw2)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const cudaError_t err = cudaFuncSetAttribute(
+        field_grad_tc_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    field_grad_tc_kernel<P><<<B, TC_THREADS, bytes, s>>>(x, y, M, dim, *net, loss, *grads);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

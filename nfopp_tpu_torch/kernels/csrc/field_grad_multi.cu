@@ -15,9 +15,8 @@
 //
 // Bound on this card (H100 SXM data sheet rates): at B=256 x M=209, ~10.5
 // GFLOP, ~11 us at 989 TFLOP/s bf16 dense, against ~68 MB of f32 weights in
-// and gradients out, ~20 us at 3.35 TB/s: bound by bytes. This first version
-// runs the bf16 products as exact f32 FMAs on the CUDA cores, at kernel 2's
-// speed; tensor cores are later work.
+// and gradients out, ~20 us at 3.35 TB/s: bound by bytes. The bf16 products
+// run on the tensor cores (field_grad.cuh::field_grad_tc_kernel<BF16_MULTI>).
 //
 // In f32 the function is kernel 2's, and so is the launch: each kernel
 // instantiation lives in one translation unit only.
@@ -26,11 +25,11 @@
 using namespace nf;
 
 extern "C" int nf_field_grad(const NetArgs* net, const float* x, const float* y, int B, int M,
-                             int dim, float* loss, const Grads* grads, void* stream);
+                             int dim, int bf16, float* loss, const Grads* grads, void* stream);
 
 extern "C" int nf_field_grad_multi(const NetArgs* net, const float* x, const float* y, int B,
                                    int M, int dim, int bf16, float* loss, const Grads* grads,
                                    void* stream) {
   return bf16 ? launch_field_grad<BF16_MULTI>(net, x, y, B, M, dim, loss, grads, stream)
-              : nf_field_grad(net, x, y, B, M, dim, loss, grads, stream);
+              : nf_field_grad(net, x, y, B, M, dim, 0, loss, grads, stream);
 }

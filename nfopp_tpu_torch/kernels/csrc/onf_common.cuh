@@ -25,8 +25,8 @@
 //               layer in f32, every MLP and head product's operands rounded
 //               (weights, features, h1, h2, and in the backward the
 //               cotangents g, dh2, dh1 where they enter a product);
-//   BF16_APPLY  models/onf.py::onf_apply's casts (the collision kernels' bf16
-//               mode): as BF16_MULTI but xy and the encoding weights rounded
+//   BF16_APPLY  models/onf.py::onf_apply's casts (the production solver's
+//               bf16 kernels): as BF16_MULTI but xy and the encoding weights rounded
 //               too; its backward is the autograd of those casts, which
 //               rounds each cotangent once, where it passes back through a
 //               cast, after its f32 product.

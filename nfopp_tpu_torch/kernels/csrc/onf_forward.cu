@@ -13,6 +13,12 @@
 // the logits: no activation touches device memory. The products are plain f32
 // FMA loops (onf_common.cuh::onf_logits_kernel<F32>); tensor cores would
 // change the f32 numerics.
+//
+// Under compute_dtype="bfloat16" (bf16 != 0) the production solver scores
+// through models/onf.py::onf_apply's casts: onf_logits_kernel<BF16_APPLY>,
+// the forward of the collision kernels' bf16 mode (xy, the encoding weights
+// and every product operand rounded to bf16, f32 accumulation). In bf16 the
+// work is ~3 us at 989 TFLOP/s against ~10 us of weights: bound by bytes.
 #include "onf_common.cuh"
 
 using namespace nf;
@@ -22,6 +28,7 @@ extern "C" const char* nf_error_string(int code) {
 }
 
 extern "C" int nf_onf_forward(const NetArgs* net, const float* x, int B, int M, int dim,
-                              float* out, void* stream) {
-  return launch_onf_logits<F32>(net, x, B, M, dim, out, stream);
+                              int bf16, float* out, void* stream) {
+  return bf16 ? launch_onf_logits<BF16_APPLY>(net, x, B, M, dim, out, stream)
+              : launch_onf_logits<F32>(net, x, B, M, dim, out, stream);
 }

@@ -27,10 +27,10 @@
 using namespace nf;
 
 extern "C" int nf_onf_forward(const NetArgs* net, const float* x, int B, int M, int dim,
-                              float* out, void* stream);
+                              int bf16, float* out, void* stream);
 
 extern "C" int nf_onf_multi(const NetArgs* net, const float* x, int B, int M, int dim, int bf16,
                             float* out, void* stream) {
   return bf16 ? launch_onf_logits<BF16_MULTI>(net, x, B, M, dim, out, stream)
-              : nf_onf_forward(net, x, B, M, dim, out, stream);
+              : nf_onf_forward(net, x, B, M, dim, 0, out, stream);
 }

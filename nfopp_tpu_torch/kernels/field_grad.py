@@ -3,6 +3,12 @@
 CUDA counterpart of `nfopp_tpu/experimental/pallas/field_grad.py::_kernel`
 (via `field_loss_and_grad_fused`); source in `csrc/field_grad.cu`. On the main
 path it is the loss and gradient of every field update.
+
+Under compute_dtype="bfloat16" the kernel computes autograd of `onf_apply`'s
+casts, as the solver's plain path does: each gradient of a cast weight
+(encoding, mlp1, mlp2 and out weights) is its f32 sum over the points rounded
+once to bf16, the bias gradients stay f32; its launches count under
+"field_grad_bf16".
 """
 from __future__ import annotations
 
@@ -14,7 +20,7 @@ from ..models.onf import ONFConfig, onf_apply
 from ..ops.losses import bce_with_logits
 from ..utils.tree import tree_leaves, tree_map
 from . import build
-from .common import LAUNCHES, check_points, check_tensor, net_args, stream, use_plain
+from .common import LAUNCHES, check_points, check_tensor, is_bf16, net_args, stream, use_plain
 
 __all__ = ["field_grad", "field_grad_plain", "launch_field_grad"]
 
@@ -79,4 +85,6 @@ def field_grad(
     on points [B, M, dim] against labels truth [B, M] (bool or float)."""
     if use_plain(points, config, "field_grad"):
         return field_grad_plain(params, points, truth, config)
-    return launch_field_grad("field_grad", "nf_field_grad", params, points, truth, config)
+    bf16 = is_bf16(config)
+    return launch_field_grad("field_grad_bf16" if bf16 else "field_grad", "nf_field_grad",
+                             params, points, truth, config, int(bf16))

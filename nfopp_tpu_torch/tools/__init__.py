@@ -1,2 +1,3 @@
-"""Drivers of the port on a CUDA card: the main path's car scene and the
-per-step profiler (`python3 -m nfopp_tpu_torch.tools.profile_step`)."""
+"""Drivers of the port on a CUDA card: the main path's car scene, the
+per-step profiler (`python3 -m nfopp_tpu_torch.tools.profile_step`) and the
+field-gradient kernels' timer (`python3 -m nfopp_tpu_torch.tools.time_field_grad`)."""

@@ -1,7 +1,8 @@
 """Where a step of the PyTorch/CUDA port's main path spends its time.
 
 Runs the workload of `chip_smoke.py`'s main path (car scene, run_planner_config
-in f32, B problems, seeded) on one CUDA card: `--warmup` steps, then
+in f32, or with --bf16 in bf16 as bench.py runs it by default, B problems,
+seeded) on one CUDA card: `--warmup` steps, then
 `--steps` steps timed on the host clock, then the same number of steps under
 torch.profiler. The trace's kernel events give the device's busy time per
 step (kernels on the one stream do not overlap), its idle share, and the
@@ -9,6 +10,7 @@ time and launches per step of each kernel. Prints one JSON object; the
 Chrome trace goes to --trace.
 
     python3 -m nfopp_tpu_torch.tools.profile_step --trace profiles/torch_step_trace.json
+    python3 -m nfopp_tpu_torch.tools.profile_step --bf16 --trace profiles/torch_step_trace_bf16.json
 """
 from __future__ import annotations
 
@@ -32,6 +34,8 @@ def main() -> int:
     parser.add_argument("--warmup", type=int, default=20)
     parser.add_argument("--steps", type=int, default=20)
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--bf16", action="store_true",
+                        help="the field's products in bf16 (compute_dtype='bfloat16')")
     parser.add_argument("--trace", default="profiles/torch_step_trace.json")
     args = parser.parse_args()
 
@@ -41,7 +45,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda", 0)
     oracle, start, goal, bounds = car_world(args.batch, device)
-    solver = ConstrainedSolver(run_planner_config(), rectangle_collision, device=device)
+    cfg = run_planner_config()
+    if args.bf16:
+        cfg = cfg._replace(onf=cfg.onf._replace(compute_dtype="bfloat16"))
+    solver = ConstrainedSolver(cfg, rectangle_collision, device=device)
     g = torch.Generator(device=device).manual_seed(args.seed)
     state = solver.init_state(g, start, goal, bounds, oracle)
     # warm-up and the timed window use whole chunks of the static schedule
@@ -77,6 +84,7 @@ def main() -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     result = {
         "card": card_line(),
+        "compute_dtype": cfg.onf.compute_dtype,
         "batch": args.batch,
         "host_ms_per_step": host_ms,
         "profiled_ms_per_step": profiled_ms,

@@ -195,3 +195,47 @@ def test_hold_bf16_accepts_a_flipped_relu_unit(casts):
         with pytest.raises(AssertionError, match=r"problems \[0\] outside"):
             cs.hold("no kinks", got, want, tols, bf16=True)
     assert cs.hold("kink", got, want, tols, kinks=(params, x, BF16, recompute), bf16=True) > 0
+
+
+def test_field_grad_f64_apply_is_the_bf16_field_grad_plain():
+    """masked_forward's "apply" casts under autograd, the recomputation that
+    holds the bf16 field_grad kernel, are field_grad_plain's bf16 gradients
+    (autograd of onf_apply's casts), held as chip_smoke.py holds the kernel."""
+    g = torch.Generator().manual_seed(8)
+    params = init_onf_params(g, BF16, B, CPU)
+    x = torch.rand(B, M, 3, generator=g) * 3
+    truth = torch.rand(B, M, generator=g) > 0.5
+    recompute = cs.field_grad_f64(truth, BF16, "apply")
+    got = [torch.cat(parts) for parts in zip(*(
+        recompute(tree_map(lambda t: t[i:i + 1].float(), params), x[i:i + 1], i, ())
+        for i in range(B)))]
+    want = tree_leaves(kernels.field_grad_plain(params, x, truth, BF16)[1])
+    assert cs.hold("field_grad_f64 apply", got, want, [GRAD_TOLS] * len(want), bf16=True) < 1e-2
+
+
+def test_hold_bf16_accepts_a_unit_flipped_within_a_tie_reach():
+    """A bf16 tie in a layer's input moves a unit's pre-activation by up to
+    BF16_ULP max_j |a_j W_jc|. A first-layer unit half that far from zero in
+    problem 0, flipped, passes under bf16 through tie_reach_units, and fails
+    as f32, where only units within KINK_TOL of zero may flip."""
+    g = torch.Generator().manual_seed(7)
+    params = init_onf_params(g, BF16, B, CPU)
+    x = torch.rand(B, M, 3, generator=g) * 3
+    truth = torch.rand(B, M, generator=g) > 0.5
+    record = {}
+    _, pre = cs.masked_forward(*one(params, x), BF16, casts="apply", record=record)
+    a, w = record["inputs"][0][0, POINT], record["weights"][0][0]
+    reach = cs.BF16_ULP * float((a.abs() * w[:, UNIT].abs()).max())
+    assert reach > 10 * cs.KINK_TOL
+    params["mlp1"]["b"][0, UNIT] -= float(pre[0][0, POINT, UNIT]) - 0.5 * reach
+    recompute = cs.field_grad_f64(truth, BF16, "apply")
+    want = tree_leaves(kernels.field_grad_plain(params, x, truth, BF16)[1])
+    got = [t.clone() for t in want]
+    for leaf, f in zip(got, recompute(*one(params, x), 0, [(0, POINT, UNIT)])):
+        leaf[0] = f[0].float()
+    tols = [GRAD_TOLS] * len(want)
+    with pytest.raises(AssertionError, match=r"problems \[0\] outside"):
+        cs.hold("no kinks", got, want, tols, bf16=True)
+    assert cs.hold("tie", got, want, tols, kinks=(params, x, BF16, recompute), bf16=True) > 0
+    with pytest.raises(AssertionError, match="problem 0 misses its bound"):
+        cs.hold("as f32", got, want, tols, kinks=(params, x, BF16, recompute))

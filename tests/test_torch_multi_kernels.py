@@ -206,21 +206,15 @@ def test_bf16_collision_terms_match_the_jax_solver(beta, angle):
     assert_close(dm.numpy(), ref_dm, (5e-4, 1e-6), "bfloat16", "d multipliers")
 
 
-@pytest.mark.parametrize("name, bf16_on_cuda", [
-    ("onf_forward", False), ("field_grad", False), ("collision_terms", True),
-    ("onf_multi", True), ("field_grad_multi", True),
+@pytest.mark.parametrize("name", [
+    "onf_forward", "field_grad", "collision_terms", "onf_multi", "field_grad_multi",
 ])
-def test_dispatch_rule_for_bf16_on_cuda(name, bf16_on_cuda):
-    """On CUDA tensors the production solver's field passes stay f32 (their
-    bf16 mode is a ROADMAP item); the collision and multi-problem kernels take
-    bf16. Neither ever falls back to the plain version."""
+def test_dispatch_rule_for_bf16_on_cuda(name):
+    """On CUDA tensors every kernel takes f32 and bf16, the production
+    solver's field passes included (onf_apply's casts); none ever falls back
+    to the plain version, and an unsupported compute_dtype raises."""
     on_cuda = types.SimpleNamespace(device=torch.device("cuda"))
-    bf16 = ONFConfig(compute_dtype="bfloat16")
     assert use_plain(on_cuda, ONFConfig(), name) is False
-    if bf16_on_cuda:
-        assert use_plain(on_cuda, bf16, name) is False
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md section 1, item 18"):
-            use_plain(on_cuda, bf16, name)
+    assert use_plain(on_cuda, ONFConfig(compute_dtype="bfloat16"), name) is False
     with pytest.raises(ValueError, match="unsupported compute_dtype"):
         use_plain(on_cuda, ONFConfig(compute_dtype="float16"), name)
