@@ -167,21 +167,6 @@ def field_macs(cfg) -> dict:
     return macs
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def bounds_of(got, want, rtol: float, atol: float, bf16: bool):
     """|got - want| and its bound, elementwise: atol + rtol |want|, plus under
     bf16 BF16_ULP times each problem's largest |want|."""
@@ -505,6 +490,7 @@ def check_collision(inp: "KernelInputs", onf) -> dict:
 
     from nfopp_tpu_torch import kernels
     from nfopp_tpu_torch.kernels.collision_terms import collision_bwd, collision_fwd
+    from nfopp_tpu_torch.tools.scene import time_ms
 
     params, x3, mult, beta, weights = inp.params, inp.x3, inp.mult, inp.beta, inp.weights
     bf16 = onf.compute_dtype == "bfloat16"
@@ -549,6 +535,7 @@ def check_kernels(device, peaks, seed: int, batch: int) -> dict:
     recomputation) and the f32 collision kernels against their plain
     versions at the main path's shapes."""
     from nfopp_tpu_torch import kernels
+    from nfopp_tpu_torch.tools.scene import time_ms
     from nfopp_tpu_torch.utils.tree import tree_leaves
 
     inp = KernelInputs(device, seed, batch)
@@ -597,6 +584,7 @@ def check_batch_kernels(device, peaks, seed: int, batch: int) -> tuple[dict, dic
     import torch
 
     from nfopp_tpu_torch import kernels
+    from nfopp_tpu_torch.tools.scene import time_ms
     from nfopp_tpu_torch.utils.tree import tree_leaves
 
     inp = KernelInputs(device, seed + 1, batch)
@@ -662,6 +650,9 @@ def check_configs(device, seed: int) -> dict:
         ONFConfig(mean=1.0, sigma=3.0, use_cos=True, angle_encoding=False),
         ONFConfig(mean=0.0, sigma=1.0, use_cos=False, angle_encoding=False),
         ONFConfig(mean=0.5, sigma=2.0, use_cos=True, angle_encoding=True, bias=False),
+        # the widest hidden layer the bf16 field-gradient kernels take at 220
+        # features (the f32 one, without room for its slope tile, 108)
+        ONFConfig(mean=0.0, sigma=1.0, use_cos=True, angle_encoding=True, hidden=104),
     ]
     g = torch.Generator(device=device).manual_seed(seed)
     cot = torch.tensor([3.0, 1.0])
@@ -711,6 +702,21 @@ def check_configs(device, seed: int) -> dict:
                                kinks=(params, x, onf, collision_f64(mult, cot, onf, 10.0, casts)),
                                bf16=bf16))
             errors[f"config{i}_m{m}"] = err
+    # one step past those widths a field-gradient launch refuses with a clear error
+    wide = ONFConfig(mean=0.0, sigma=1.0, use_cos=True, angle_encoding=True, hidden=112)
+    params = init_onf_params(g, wide, 3, device)
+    x = torch.randn((3, 37, 3), generator=g, device=device) * 2
+    truth = torch.rand((3, 37), generator=g, device=device) > 0.5
+    for onf in (wide, wide._replace(compute_dtype="bfloat16")):
+        for name, fn in (("field_grad", kernels.field_grad),
+                         ("field_grad_multi", lambda *a: kernels.field_grad_multi(*a, 3))):
+            try:
+                fn(params, x, truth, onf)
+            except ValueError as exc:
+                if "does not fit" not in str(exc):
+                    raise
+            else:
+                raise AssertionError(f"{name} ({onf.compute_dtype}) took hidden 112")
     return errors
 
 

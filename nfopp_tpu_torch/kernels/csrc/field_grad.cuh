@@ -40,7 +40,8 @@
 // ~205 KB, one CTA of 16 warps per SM, so the tiles stay at 32 rows. dW1's
 // f32 sum stays in the MMA accumulators of the warps that own its 16 x 8
 // tiles (at most 12 per warp, 48 registers; 128 registers in all, no
-// spills). So both weight
+// spills; a field of more than 192 such tiles, hidden > 104 at 220 features,
+// is refused: TOO_LARGE). So both weight
 // gradients accumulate on chip over all row tiles and are written once,
 // rounded under BF16_APPLY, dW1 staged through the freed shared memory so
 // that its rows are written whole. Each warp owns whole 8-column tiles of
@@ -54,13 +55,23 @@
 // features' sincosf, the d-feature epilogue and the dW1 products are its
 // largest phases.
 //
-// F32 (field_grad_f32_kernel): CUDA-core FMA loops on the shared field of
-// onf_common.cuh (132.6 KB of f32 weights, 32-row transposed tiles); dW2
-// accumulates on chip in registers (thread (column, row group) owns its
-// column's share of dW2 over all tiles, at most 64 values), and dW1, which
-// fits in neither, is added into the problem's own output slice once per
-// tile (the first tile stores, later ones read-modify-write, each element by
-// the same thread). A one-pass TF32 product would miss the f32 tolerances.
+// F32 (field_grad_f32_kernel): register-blocked FMA micro-tiles on the CUDA
+// cores (a one-pass TF32 product would miss the f32 tolerances), 8 warps.
+// Shared memory holds the f32 weights (W1, W2 [k][column], 128 KB at the
+// full width) and row-major f32 tiles of 32 rows (features, h1 then d pre1,
+// h2 then d pre2), rows strided 4 (mod 8) floats, and, where it fits (the
+// full width: ~219 KB in all), an f32 slope tile filled by the features'
+// sincosf; without it the encoding gradients recompute their sin/cos. Each
+// product gives a thread 4 rows x 4 columns: the forward products (mm_nn)
+// and the two with W transposed (mm_nt: d pre1 = d pre2 . W2^T, d features
+// = d pre1 . W1^T) read 4 float4s of the tile and 4 of the weights for 64
+// FMAs. Both weight gradients stay in registers over all row tiles: each
+// thread owns 2 x 3 4x4 chunks of dW1 (96 values) and 1 x 3 of dW2 (48),
+// and per row reads 5 (4) float4s for 96 (48) FMAs; they are written once,
+// staged through the weights' space. Bias and encoding gradients are row
+// sums in a fixed order (a 3-step butterfly over the 8 row groups). A field
+// whose chunks need more threads than the CTA has (hidden > 108 at 220
+// features) is refused (TOO_LARGE).
 #pragma once
 
 #include "mma.cuh"
@@ -88,53 +99,180 @@ __device__ __forceinline__ float w3_operand(float g) {
 
 // ------------------------------------------------------------------ F32 ----
 
-// Offsets of the shared-memory gradient accumulators, relative to Layout.acc.
-struct GradLayout {
-  int w3, b1, b2, ew, eb, ab, b3, size;
+// Returned by a launch whose field does not fit one CTA of its kernel on chip
+// (shared memory, or the register tiles of the weight gradients); not a CUDA
+// error code.
+constexpr int TOO_LARGE = -1;
+
+constexpr int KC = 2;  // 4-feature chunks of dW1 per thread
+constexpr int CC = 3;  // 4-column chunks of dW1 and of dW2 per thread
+
+// The smallest stride >= n floats that is 4 (mod 8): the float4s of 8
+// consecutive rows at one column then fall in 8 different bank groups.
+__host__ __device__ inline int stride4(int n) {
+  const int v = round4(n);
+  return v % 8 == 0 ? v + 4 : v;
+}
+
+// Offsets, in floats, of the f32 kernel's shared memory (each 16-byte
+// aligned). Tiles are row-major [row][column] and W1, W2 [k][column], their
+// columns and rows zero-padded to whole 4-wide chunks: NF chunks of features,
+// NH of hidden columns. NK x NC threads own dW1's chunks (KC x CC each), NH x
+// NC threads dW2's (1 x CC each). slope < 0: no room for the slope tile.
+struct F32Layout {
+  int FEAT, NF, NH, NK, NC, ldw, ldf, ldh;
+  int w1, w2, feat, slope, h1, h2, w3, ew, eb, b1, b2, ab, xn, yn, th, g, bce;
+  int gw3, gb1, gb2, gew, geb, gab, total;
 };
 
-__host__ __device__ inline GradLayout grad_layout(const NetArgs& n) {
-  GradLayout G;
+__host__ __device__ inline F32Layout f32_layout(const NetArgs& n, bool with_slope) {
+  F32Layout L;
+  const int F = n.F, A = n.A, HID = n.HID;
+  L.FEAT = F + A;
+  L.NF = (L.FEAT + 3) / 4;
+  L.NH = (HID + 3) / 4;
+  L.NK = (L.NF + KC - 1) / KC;
+  L.NC = (L.NH + CC - 1) / CC;
+  L.ldw = stride4(4 * L.NH);
+  L.ldf = stride4(4 * KC * L.NK);
+  L.ldh = stride4(4 * CC * L.NC);
   int o = 0;
-  G.w3 = take(o, n.HID + n.F + n.A);
-  G.b1 = take(o, n.HID);
-  G.b2 = take(o, n.HID);
-  G.ew = take(o, 2 * n.F);
-  G.eb = take(o, n.F);
-  G.ab = take(o, n.A);
-  G.b3 = take(o, 1);
-  G.size = o;
-  return G;
+  L.w1 = take(o, 4 * L.NF * L.ldw);
+  L.w2 = take(o, 4 * L.NH * L.ldw);
+  L.feat = take(o, TM * L.ldf);
+  L.slope = with_slope ? take(o, TM * L.ldf) : -1;
+  L.h1 = take(o, TM * L.ldh);
+  L.h2 = take(o, TM * L.ldh);
+  L.w3 = take(o, HID + L.FEAT);
+  L.ew = take(o, 2 * F);
+  L.eb = take(o, F);
+  L.b1 = take(o, 4 * L.NH);
+  L.b2 = take(o, 4 * L.NH);
+  L.ab = take(o, A);
+  L.xn = take(o, TM);
+  L.yn = take(o, TM);
+  L.th = take(o, TM);
+  L.g = take(o, TM);
+  L.bce = take(o, TM);
+  L.gw3 = take(o, HID + L.FEAT);
+  L.gb1 = take(o, HID);
+  L.gb2 = take(o, HID);
+  L.gew = take(o, 2 * F);
+  L.geb = take(o, F);
+  L.gab = take(o, A);
+  L.total = o;
+  return L;
 }
 
-constexpr int MAX_DW2 = CSLOTS / RGROUPS;  // dW2 rows a thread owns (hidden <= 128)
+// With the slope tile where it fits (the full-width field), else without.
+__host__ __device__ inline F32Layout f32_layout(const NetArgs& n) {
+  const F32Layout L = f32_layout(n, true);
+  return L.total * (int)sizeof(float) <= MAX_SMEM ? L : f32_layout(n, false);
+}
 
-// Column c of a transposed tile (TM rows) into registers.
-__device__ __forceinline__ void load_column(const float* bT, int c, float bc[TM]) {
-  const float4* bp = reinterpret_cast<const float4*>(bT + c * LDT);
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float at(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// Sum of v over the 8 lanes that share lane / 8 (the row groups of one
+// column group), in a fixed order.
+__device__ __forceinline__ float sum_row_groups(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  return v;
+}
+
+// acc[i][v] += sum_k X[rg + 8 i][k] W[k][c0 + v] for a row-major tile X and
+// a row-major W [k][column]; K a multiple of 4. Each step of 4 k reads 8
+// float4s for 64 FMAs.
+__device__ __forceinline__ void mm_nn(float acc[4][4], const float* X, int ldx, int rg, int K,
+                                      const float* W, int ldw, int c0) {
+#pragma unroll 2
+  for (int k = 0; k < K; k += 4) {
+    float4 a[4], w[4];
 #pragma unroll
-  for (int q = 0; q < TM / 4; ++q) {
-    const float4 v = bp[q];
-    bc[4 * q] = v.x;
-    bc[4 * q + 1] = v.y;
-    bc[4 * q + 2] = v.z;
-    bc[4 * q + 3] = v.w;
+    for (int i = 0; i < 4; ++i) a[i] = ld4(X + (rg + 8 * i) * ldx + k);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) w[u] = ld4(W + (k + u) * ldw + c0);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float av = at(a[i], u);
+        acc[i][0] = fmaf(av, w[u].x, acc[i][0]);
+        acc[i][1] = fmaf(av, w[u].y, acc[i][1]);
+        acc[i][2] = fmaf(av, w[u].z, acc[i][2]);
+        acc[i][3] = fmaf(av, w[u].w, acc[i][3]);
+      }
+    }
   }
 }
 
-// sum_r aT[k][r] * bc[r] over the tile's TM rows
-__device__ __forceinline__ float dot_rows(const float* aT, int k, const float bc[TM]) {
-  const float4* ap = reinterpret_cast<const float4*>(aT + k * LDT);
-  float acc = 0.f;
+// acc[i][v] += sum_k X[rg + 8 i][k] W[j0 + jstep v][k] for a row-major tile X
+// and a row-major W [j][k] (a product with W transposed); K a multiple of 4.
+__device__ __forceinline__ void mm_nt(float acc[4][4], const float* X, int ldx, int rg, int K,
+                                      const float* W, int ldw, int j0, int jstep) {
+#pragma unroll 2
+  for (int k = 0; k < K; k += 4) {
+    float4 a[4], w[4];
 #pragma unroll
-  for (int q = 0; q < TM / 4; ++q) {
-    const float4 v = ap[q];
-    acc = fmaf(v.x, bc[4 * q], acc);
-    acc = fmaf(v.y, bc[4 * q + 1], acc);
-    acc = fmaf(v.z, bc[4 * q + 2], acc);
-    acc = fmaf(v.w, bc[4 * q + 3], acc);
+    for (int i = 0; i < 4; ++i) a[i] = ld4(X + (rg + 8 * i) * ldx + k);
+#pragma unroll
+    for (int v = 0; v < 4; ++v) w[v] = ld4(W + (j0 + jstep * v) * ldw + k);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        float s = acc[i][v];
+        s = fmaf(a[i].x, w[v].x, s);
+        s = fmaf(a[i].y, w[v].y, s);
+        s = fmaf(a[i].z, w[v].z, s);
+        acc[i][v] = fmaf(a[i].w, w[v].w, s);
+      }
+    }
   }
-  return acc;
+}
+
+// O[r][c] = relu(sum_k X[r][k] W[k][c] + bias[c]) for the tile's TM rows and
+// 4 NG columns: thread (tid % 8, tid / 8) takes rows tid % 8 + 8 i and
+// columns 4 (tid / 8) .. + 3. Zero-padded weights and biases give zero
+// padding columns.
+__device__ inline void dense_relu_f32(const float* X, int ldx, int K, const float* W, int ldw,
+                                      const float* bias, int NG, float* O, int ldo) {
+  const int rg = threadIdx.x % 8, cg = threadIdx.x / 8;
+  if (cg >= NG) return;
+  float acc[4][4] = {};
+  mm_nn(acc, X, ldx, rg, K, W, ldw, 4 * cg);
+  const float4 bv = ld4(bias + 4 * cg);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    *reinterpret_cast<float4*>(O + (rg + 8 * i) * ldo + 4 * cg) =
+        make_float4(fmaxf(acc[i][0] + bv.x, 0.f), fmaxf(acc[i][1] + bv.y, 0.f),
+                    fmaxf(acc[i][2] + bv.z, 0.f), fmaxf(acc[i][3] + bv.w, 0.f));
+}
+
+// Pre-activation of feature k at a row (xr, yr, tr): the encoding output of a
+// Fourier feature, the phase of an angle feature; whether the feature is its
+// cosine, and the phase's frequency (1 for a Fourier feature).
+__device__ __forceinline__ float feature_arg(const NetArgs& n, const float* ew, const float* eb,
+                                             const float* ab, float xr, float yr, float tr, int k,
+                                             bool* is_cos, float* freq) {
+  if (k < n.F) {
+    float arg = xr * ew[k] + yr * ew[n.F + k];
+    if (n.bias) arg += eb[k];
+    *is_cos = n.use_cos && k >= n.F / 2;
+    *freq = 1.f;
+    return arg;
+  }
+  const int a = k - n.F;
+  *freq = (float)(a % (n.A / 2) + 1);
+  *is_cos = a >= n.A / 2;
+  return (tr + ab[a]) * *freq;
 }
 
 // (a template, instantiated for F32 only, so that the header can be included
@@ -146,161 +284,318 @@ field_grad_f32_kernel(const float* __restrict__ x, const float* __restrict__ y, 
   static_assert(P == F32, "the bf16 modes run field_grad_tc_kernel");
   extern __shared__ float4 smem_f4[];
   float* s = reinterpret_cast<float*>(smem_f4);
-  const GradLayout G = grad_layout(n);
-  const Layout L = make_layout(n, G.size);
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const int lane = tid % 32, cs = tid % CSLOTS, rg = tid / CSLOTS, r0 = rg * RPT;
-  const int F = n.F, A = n.A, HID = n.HID, FEAT = L.FEAT;
-  float* acc_s = s + L.acc;
-  load_weights<F32>(n, L, b, s);
-  for (int i = tid; i < G.size; i += THREADS) acc_s[i] = 0.f;
+  const F32Layout L = f32_layout(n);
+  const int b = blockIdx.x, tid = threadIdx.x, warp = tid / 32, lane = tid % 32, rg = tid % 8;
+  const int F = n.F, A = n.A, HID = n.HID, FEAT = L.FEAT, NF = L.NF, NH = L.NH, NK = L.NK,
+            NC = L.NC, ldw = L.ldw, ldf = L.ldf, ldh = L.ldh;
+  float *w1 = s + L.w1, *w2 = s + L.w2, *feat = s + L.feat, *h1 = s + L.h1, *h2 = s + L.h2;
+  float* slope = L.slope >= 0 ? s + L.slope : nullptr;
+  float *w3 = s + L.w3, *ew = s + L.ew, *eb = s + L.eb, *b1 = s + L.b1, *b2 = s + L.b2,
+        *ab = s + L.ab, *xn = s + L.xn, *yn = s + L.yn, *th = s + L.th, *gs = s + L.g,
+        *bces = s + L.bce;
+  float *gw3 = s + L.gw3, *gb1 = s + L.gb1, *gb2 = s + L.gb2, *gew = s + L.gew,
+        *geb = s + L.geb, *gab = s + L.gab;
+
+  // zero everything: padding rows and columns stay zero, sums start at zero
+  for (int i = tid; i < L.total / 4; i += THREADS) smem_f4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
+  {
+    const float* src = n.w1 + (size_t)b * FEAT * HID;
+    for (int i = tid; i < FEAT * HID; i += THREADS) {
+      const int k = i / HID, c = i - k * HID;
+      w1[k * ldw + c] = src[i];
+    }
+    src = n.w2 + (size_t)b * HID * HID;
+    for (int i = tid; i < HID * HID; i += THREADS) {
+      const int k = i / HID, c = i - k * HID;
+      w2[k * ldw + c] = src[i];
+    }
+    for (int i = tid; i < HID + FEAT; i += THREADS) w3[i] = n.w3[(size_t)b * (HID + FEAT) + i];
+    for (int i = tid; i < 2 * F; i += THREADS) ew[i] = n.ew[(size_t)b * 2 * F + i];
+    for (int i = tid; i < F; i += THREADS) eb[i] = n.eb[(size_t)b * F + i];
+    for (int i = tid; i < HID; i += THREADS) {
+      b1[i] = n.b1[(size_t)b * HID + i];
+      b2[i] = n.b2[(size_t)b * HID + i];
+    }
+    for (int i = tid; i < A; i += THREADS) ab[i] = n.ab[(size_t)b * A + i];
+  }
+  const float b3 = n.b3[b];
   x += (size_t)b * M * dim;
   y += (size_t)b * M;
-  float* gw1 = gr.w1 + (size_t)b * FEAT * HID;
   const float inv_n = 1.f / (float)M;
-  float loss_sum = 0.f;  // held by thread 0
-  // dW2[k][cs] for k in [k2, k2 + per2): this thread's share, over all tiles
-  const int per2 = (HID + RGROUPS - 1) / RGROUPS, k2 = rg * per2;
-  float dw2[MAX_DW2];
-#pragma unroll
-  for (int q = 0; q < MAX_DW2; ++q) dw2[q] = 0.f;
+  float loss_sum = 0.f, b3_sum = 0.f;  // held by thread 0
+  // this thread's chunks of the weight gradients, summed over all tiles in
+  // registers: dW1 at feature chunks kq + NK s, column chunks cq + NC t; dW2
+  // at row chunk jq, column chunks cq2 + NC t
+  const int kq = tid % NK, cq = tid / NK, jq = tid % NH, cq2 = tid / NH;
+  float dw1[KC][CC][4][4] = {}, dw2[CC][4][4] = {};
 
   for (int row0 = 0; row0 < M; row0 += TM) {
-    const bool first = row0 == 0;
-    forward_tile<F32>(x, M, dim, row0, n, L, s);
-    // loss and d logits per row
-    if (tid < 32) {
-      const int row = row0 + lane;
-      float bce = 0.f, gv = 0.f;
+    // rows row0 .. row0 + TM, normalised; rows past M read as the origin,
+    // and their g is zero
+    if (tid < TM) {
+      const int row = row0 + tid;
+      float px = 0.f, py = 0.f, pt = 0.f;
       if (row < M) {
-        const float z = s[L.z + lane], t = y[row];
-        bce = fmaxf(z, 0.f) - z * t + log1pf(expf(-fabsf(z)));
-        gv = (1.f / (1.f + expf(-z)) - t) * inv_n;
+        const float* p = x + (size_t)row * dim;
+        px = p[0];
+        py = p[1];
+        if (dim > 2) pt = p[2];
       }
-      s[L.g + lane] = gv;
-      loss_sum += warp_sum(bce);
+      xn[tid] = (px - n.mean) / n.sigma;
+      yn[tid] = (py - n.mean) / n.sigma;
+      th[tid] = pt;
     }
     __syncthreads();
-    // out.w from g and the head's inputs [h2 | features]; out.b from g
-    for (int j = tid; j < HID + FEAT; j += THREADS) {
-      const float* a = j < HID ? s + L.h2 + j * LDT : s + L.feat + (j - HID) * LDT;
-      float acc = 0.f;
+    // features, and the slope of each (d feature / d its pre-activation)
+    // from the same sincosf where there is room for it
+    for (int i = tid; i < TM * FEAT; i += THREADS) {
+      const int r = i / FEAT, k = i - r * FEAT;
+      bool is_cos;
+      float freq, sv, cv;
+      sincosf(feature_arg(n, ew, eb, ab, xn[r], yn[r], th[r], k, &is_cos, &freq), &sv, &cv);
+      feat[r * ldf + k] = is_cos ? cv : sv;
+      if (slope) slope[r * ldf + k] = is_cos ? -sv : cv;
+    }
+    __syncthreads();
+    dense_relu_f32(feat, ldf, 4 * NF, w1, ldw, b1, NH, h1, ldh);
+    __syncthreads();
+    dense_relu_f32(h1, ldh, 4 * NH, w2, ldw, b2, NH, h2, ldh);
+    __syncthreads();
+    // head z = [h2 | features] . out.w + out.b, then the loss and d logits of
+    // each row: warp w takes rows w + 8 q, all four at once, and lane q
+    // finishes row w + 8 q
+    {
+      float acc[4] = {};
+      for (int j = lane; j < HID; j += 32) {
+        const float w = w3[j];
 #pragma unroll
-      for (int r = 0; r < TM; ++r) acc = fmaf(a[r], s[L.g + r], acc);
-      acc_s[G.w3 + j] += acc;
+        for (int q = 0; q < 4; ++q) acc[q] = fmaf(h2[(warp + 8 * q) * ldh + j], w, acc[q]);
+      }
+      for (int k = lane; k < FEAT; k += 32) {
+        const float w = w3[HID + k];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[q] = fmaf(feat[(warp + 8 * q) * ldf + k], w, acc[q]);
+      }
+      float z = 0.f;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        acc[q] = warp_sum(acc[q]);
+        if (lane == q) z = acc[q] + b3;
+      }
+      if (lane < 4) {
+        const int r = warp + 8 * lane, row = row0 + r;
+        float bce = 0.f, gv = 0.f;
+        if (row < M) {
+          const float yt = y[row];
+          bce = fmaxf(z, 0.f) - z * yt + log1pf(expf(-fabsf(z)));
+          gv = (1.f / (1.f + expf(-z)) - yt) * inv_n;
+        }
+        gs[r] = gv;
+        bces[r] = bce;
+      }
+    }
+    __syncthreads();
+    // out.w's gradient from g and [h2 | features]; h2 := d pre2 and its
+    // column sums (d b2); out.b and the loss by thread 0
+    for (int j = tid; j < HID + FEAT; j += THREADS) {
+      float acc = 0.f;
+      if (j < HID) {
+        const float w = w3[j];
+        float sum = 0.f;
+        for (int r = 0; r < TM; ++r) {
+          float* hp = h2 + r * ldh + j;
+          const float h = *hp, gv = gs[r];
+          acc = fmaf(h, gv, acc);
+          const float d = h > 0.f ? gv * w : 0.f;
+          sum += d;
+          *hp = d;
+        }
+        gb2[j] += sum;
+      } else {
+        const float* fp = feat + (j - HID);
+        for (int r = 0; r < TM; ++r) acc = fmaf(fp[r * ldf], gs[r], acc);
+      }
+      gw3[j] += acc;
     }
     if (tid == 0) {
-      float sum = 0.f;
-#pragma unroll
-      for (int r = 0; r < TM; ++r) sum += s[L.g + r];
-      acc_s[G.b3] += sum;
+      for (int r = 0; r < TM; ++r) {
+        b3_sum += gs[r];
+        loss_sum += bces[r];
+      }
     }
     __syncthreads();
-    head_backprop<F32>(n, L, s);  // h2 := d pre2
+    // dW2 += h1^T d pre2: per row, one float4 of h1 and CC of d pre2 feed
+    // 4 x 4 CC FMAs
+    if (cq2 < NC) {
+      for (int r = 0; r < TM; ++r) {
+        const float4 a = ld4(h1 + r * ldh + 4 * jq);
+        float4 d[CC];
+#pragma unroll
+        for (int t = 0; t < CC; ++t) d[t] = ld4(h2 + r * ldh + 4 * (cq2 + NC * t));
+#pragma unroll
+        for (int t = 0; t < CC; ++t) {
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const float av = at(a, u);
+            dw2[t][u][0] = fmaf(av, d[t].x, dw2[t][u][0]);
+            dw2[t][u][1] = fmaf(av, d[t].y, dw2[t][u][1]);
+            dw2[t][u][2] = fmaf(av, d[t].z, dw2[t][u][2]);
+            dw2[t][u][3] = fmaf(av, d[t].w, dw2[t][u][3]);
+          }
+        }
+      }
+    }
     __syncthreads();
-    // d b2; d W2 += h1^T d pre2 in this thread's registers
-    if (cs < HID) {
-      float bc[TM];
-      load_column(s + L.h2, cs, bc);
-      if (rg == 0) {
+    // h1 := d pre1 = [h1 > 0] * (d pre2 . W2^T) and its column sums (d b1):
+    // thread (rg, jg) takes rows rg + 8 i and columns jg + NH v
+    if (4 * warp < NH) {
+      const bool active = tid / 8 < NH;
+      const int jg = min(tid / 8, NH - 1);
+      float acc[4][4] = {};
+      mm_nt(acc, h2, ldh, rg, 4 * NH, w2, ldw, jg, NH);
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int j = jg + NH * v;
         float sum = 0.f;
 #pragma unroll
-        for (int r = 0; r < TM; ++r) sum += bc[r];
-        acc_s[G.b2 + cs] += sum;
-      }
-#pragma unroll
-      for (int q = 0; q < MAX_DW2; ++q) {
-        const int k = k2 + q;
-        if (q < per2 && k < HID) dw2[q] += dot_rows(s + L.h1, k, bc);
+        for (int i = 0; i < 4; ++i) {
+          float* hp = h1 + (rg + 8 * i) * ldh + j;
+          if (active) {
+            const float d = *hp > 0.f ? acc[i][v] : 0.f;
+            *hp = d;
+            sum += d;
+          }
+        }
+        sum = sum_row_groups(sum);
+        if (active && rg == 0 && j < HID) gb1[j] += sum;
       }
     }
     __syncthreads();
-    relu_backprop<F32>(s + L.h2, HID, s + L.w2, L.ldw2, HID, s + L.h1);  // h1 := d pre1
-    __syncthreads();
-    // d b1; d W1 += feat^T d pre1 into the output slice
-    if (cs < HID) {
-      float bc[TM];
-      load_column(s + L.h1, cs, bc);
-      if (rg == 0) {
-        float sum = 0.f;
+    // dW1 += features^T d pre1: per row, KC float4s of features and CC of
+    // d pre1 feed 16 KC CC FMAs
+    if (cq < NC) {
+      for (int r = 0; r < TM; ++r) {
+        float4 fa[KC], hb[CC];
 #pragma unroll
-        for (int r = 0; r < TM; ++r) sum += bc[r];
-        acc_s[G.b1 + cs] += sum;
-      }
-      const int per = (FEAT + RGROUPS - 1) / RGROUPS;
-      const int k0 = rg * per, k1 = min(FEAT, k0 + per);
-      for (int k = k0; k < k1; ++k) {
-        const float acc = dot_rows(s + L.feat, k, bc);
-        float* p = gw1 + (size_t)k * HID + cs;
-        *p = first ? acc : *p + acc;
+        for (int q = 0; q < KC; ++q) fa[q] = ld4(feat + r * ldf + 4 * (kq + NK * q));
+#pragma unroll
+        for (int t = 0; t < CC; ++t) hb[t] = ld4(h1 + r * ldh + 4 * (cq + NC * t));
+#pragma unroll
+        for (int q = 0; q < KC; ++q) {
+#pragma unroll
+          for (int t = 0; t < CC; ++t) {
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const float av = at(fa[q], u);
+              dw1[q][t][u][0] = fmaf(av, hb[t].x, dw1[q][t][u][0]);
+              dw1[q][t][u][1] = fmaf(av, hb[t].y, dw1[q][t][u][1]);
+              dw1[q][t][u][2] = fmaf(av, hb[t].z, dw1[q][t][u][2]);
+              dw1[q][t][u][3] = fmaf(av, hb[t].w, dw1[q][t][u][3]);
+            }
+          }
+        }
       }
     }
-    // d features -> encoding and angle-bias gradients, summed over the
-    // thread's rows, then added by one row group at a time
-    float p0[2], p1[2], p2[2];
+    // d features = d pre1 . W1^T + g out.w, through the encoding: the
+    // encoding and angle-bias gradients of each feature; thread (rg, kg)
+    // takes rows rg + 8 i and features kg + NF v, in passes of 32 groups
+    for (int pass = 0; 4 * (warp + 8 * pass) < NF; ++pass) {
+      const int item = tid / 8 + 32 * pass;
+      const int kg = min(item, NF - 1);
+      float acc[4][4] = {};
+      mm_nt(acc, h1, ldh, rg, 4 * NH, w1, ldw, kg, NF);
 #pragma unroll
-    for (int kk = 0; kk < 2; ++kk) {
-      const int k = cs + kk * CSLOTS;
-      float a0 = 0.f, a1 = 0.f, a2 = 0.f;
-      if (k < FEAT) {
-        float acc[RPT];
-        feature_grad<F32>(n, L, s, k, acc);
+      for (int v = 0; v < 4; ++v) {
+        const int k = kg + NF * v;
+        const bool valid = item < NF && k < FEAT;
+        float a0 = 0.f, a1 = 0.f, a2 = 0.f;
+        if (valid) {
+          const float w = w3[HID + k];
 #pragma unroll
-        for (int q = 0; q < RPT; ++q) {
-          const int r = r0 + q;
-          float f;
-          const float d = feature_pre_grad(n, L, s, k, r, acc[q], &f);
+          for (int i = 0; i < 4; ++i) {
+            const int r = rg + 8 * i;
+            const float df = fmaf(gs[r], w, acc[i][v]);
+            bool is_cos;
+            float freq, sl;
+            const float arg = feature_arg(n, ew, eb, ab, xn[r], yn[r], th[r], k, &is_cos, &freq);
+            if (slope) {
+              sl = slope[r * ldf + k];
+            } else {
+              float sv, cv;
+              sincosf(arg, &sv, &cv);
+              sl = is_cos ? -sv : cv;
+            }
+            const float d = sl * df;
+            if (k < F) {
+              a0 = fmaf(xn[r], d, a0);
+              a1 = fmaf(yn[r], d, a1);
+              a2 += d;
+            } else {
+              a2 = fmaf(d, freq, a2);
+            }
+          }
+        }
+        a0 = sum_row_groups(a0);
+        a1 = sum_row_groups(a1);
+        a2 = sum_row_groups(a2);
+        if (valid && rg == 0) {
           if (k < F) {
-            a0 = fmaf(s[L.xn + r], d, a0);
-            a1 = fmaf(s[L.yn + r], d, a1);
-            a2 += d;
+            gew[k] += a0;
+            gew[F + k] += a1;
+            geb[k] += a2;
           } else {
-            a2 = fmaf(d, f, a2);
+            gab[k - F] += a2;
           }
         }
       }
-      p0[kk] = a0;
-      p1[kk] = a1;
-      p2[kk] = a2;
     }
-    for (int group = 0; group < RGROUPS; ++group) {
-      if (rg == group) {
-#pragma unroll
-        for (int kk = 0; kk < 2; ++kk) {
-          const int k = cs + kk * CSLOTS;
-          if (k < F) {
-            acc_s[G.ew + k] += p0[kk];
-            acc_s[G.ew + F + k] += p1[kk];
-            acc_s[G.eb + k] += p2[kk];
-          } else if (k < FEAT) {
-            acc_s[G.ab + k - F] += p2[kk];
-          }
-        }
-      }
-      __syncthreads();
-    }
+    __syncthreads();
   }
 
-  if (cs < HID) {
-    float* gw2 = gr.w2 + (size_t)b * HID * HID;
+  // every gradient written once; dW1 and dW2 go from the registers through
+  // the weights' space (free now) so that whole rows are written
+  if (cq < NC) {
 #pragma unroll
-    for (int q = 0; q < MAX_DW2; ++q) {
-      const int k = k2 + q;
-      if (q < per2 && k < HID) gw2[(size_t)k * HID + cs] = dw2[q];
-    }
+    for (int q = 0; q < KC; ++q)
+#pragma unroll
+      for (int t = 0; t < CC; ++t)
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) {
+            const int k = 4 * (kq + NK * q) + u, c = 4 * (cq + NC * t) + v;
+            if (k < FEAT && c < HID) w1[k * HID + c] = dw1[q][t][u][v];
+          }
   }
+  if (cq2 < NC) {
+#pragma unroll
+    for (int t = 0; t < CC; ++t)
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const int j = 4 * jq + u, c = 4 * (cq2 + NC * t) + v;
+          if (j < HID && c < HID) w2[j * HID + c] = dw2[t][u][v];
+        }
+  }
+  __syncthreads();
+  float* gw1 = gr.w1 + (size_t)b * FEAT * HID;
+  for (int i = tid; i < FEAT * HID; i += THREADS) gw1[i] = w1[i];
+  float* gw2 = gr.w2 + (size_t)b * HID * HID;
+  for (int i = tid; i < HID * HID; i += THREADS) gw2[i] = w2[i];
   const size_t hf = (size_t)(HID + FEAT);
-  for (int j = tid; j < HID + FEAT; j += THREADS) gr.w3[b * hf + j] = acc_s[G.w3 + j];
+  for (int j = tid; j < HID + FEAT; j += THREADS) gr.w3[b * hf + j] = gw3[j];
   for (int j = tid; j < HID; j += THREADS) {
-    gr.b1[(size_t)b * HID + j] = acc_s[G.b1 + j];
-    gr.b2[(size_t)b * HID + j] = acc_s[G.b2 + j];
+    gr.b1[(size_t)b * HID + j] = gb1[j];
+    gr.b2[(size_t)b * HID + j] = gb2[j];
   }
-  for (int j = tid; j < 2 * F; j += THREADS) gr.ew[(size_t)b * 2 * F + j] = acc_s[G.ew + j];
+  for (int j = tid; j < 2 * F; j += THREADS) gr.ew[(size_t)b * 2 * F + j] = gew[j];
   // bias=False: the encoding bias is not trainable and its gradient is zero
-  for (int j = tid; j < F; j += THREADS) gr.eb[(size_t)b * F + j] = n.bias ? acc_s[G.eb + j] : 0.f;
-  for (int j = tid; j < A; j += THREADS) gr.ab[(size_t)b * A + j] = acc_s[G.ab + j];
+  for (int j = tid; j < F; j += THREADS) gr.eb[(size_t)b * F + j] = n.bias ? geb[j] : 0.f;
+  for (int j = tid; j < A; j += THREADS) gr.ab[(size_t)b * A + j] = gab[j];
   if (tid == 0) {
-    gr.b3[b] = acc_s[G.b3];
+    gr.b3[b] = b3_sum;
     loss[b] = loss_sum * inv_n;
   }
 }
@@ -594,19 +889,9 @@ field_grad_tc_kernel(const float* __restrict__ x, const float* __restrict__ y, i
     for (int r = warp; r < TR; r += TC_WARPS) {
       const float xr = xn[r], yr = yn[r], tr = th[r];
       for (int k = lane; k < FEAT; k += 32) {
-        float arg;
         bool is_cos;
-        if (k < F) {
-          arg = xr * ew[k] + yr * ew[F + k];
-          if (n.bias) arg += eb[k];
-          is_cos = n.use_cos && k >= F / 2;
-        } else {
-          const int a = k - F;
-          arg = (tr + ab[a]) * (float)(a % (A / 2) + 1);
-          is_cos = a >= A / 2;
-        }
-        float sv, cv;
-        sincosf(arg, &sv, &cv);
+        float freq, sv, cv;
+        sincosf(feature_arg(n, ew, eb, ab, xr, yr, tr, k, &is_cos, &freq), &sv, &cv);
         feat[r * L.ldf + k] = __float2bfloat16_rn(is_cos ? cv : sv);
         slope[r * L.ldf + k] = is_cos ? -sv : cv;
       }
@@ -827,9 +1112,12 @@ inline int launch_field_grad(const NetArgs* net, const float* x, const float* y,
                              int dim, float* loss, const Grads* grads, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if constexpr (P == F32) {
-    const Layout L = make_layout(*net, grad_layout(*net).size);
-    size_t bytes;
-    const cudaError_t err = prepare_launch(field_grad_f32_kernel<F32>, L, &bytes);
+    const F32Layout L = f32_layout(*net);
+    const size_t bytes = (size_t)L.total * sizeof(float);
+    if (bytes > (size_t)MAX_SMEM || L.NK * L.NC > THREADS || L.NH * L.NC > THREADS)
+      return TOO_LARGE;
+    const cudaError_t err = cudaFuncSetAttribute(
+        field_grad_f32_kernel<F32>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     field_grad_f32_kernel<F32><<<B, THREADS, bytes, s>>>(x, y, M, dim, *net, loss, *grads);
   } else {
@@ -838,7 +1126,7 @@ inline int launch_field_grad(const NetArgs* net, const float* x, const float* y,
     // (dW1 is staged at the start of shared memory, below dW2, at the end)
     if (bytes > (size_t)MAX_SMEM || L.MF * L.NH > MAX_W1_TILES * TC_WARPS ||
         L.KF * L.ldg * 4 > L.dw2)
-      return static_cast<int>(cudaErrorInvalidValue);
+      return TOO_LARGE;
     const cudaError_t err = cudaFuncSetAttribute(
         field_grad_tc_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return static_cast<int>(err);

@@ -24,6 +24,10 @@ from .common import LAUNCHES, check_points, check_tensor, is_bf16, net_args, str
 
 __all__ = ["field_grad", "field_grad_plain", "launch_field_grad"]
 
+# what a field-gradient launch returns for a field too large for its kernel
+# (csrc/field_grad.cuh)
+TOO_LARGE = -1
+
 
 class _Grads(ctypes.Structure):
     """Mirror of `struct Grads` in csrc/field_grad.cu."""
@@ -68,12 +72,17 @@ def launch_field_grad(
         grads["out"]["w"].data_ptr(), grads["out"]["b"].data_ptr(),
         grads["angle_biases"].data_ptr() if config.angle_encoding else None,
     )
-    build.check(
-        getattr(build.load_library(), entry)(
-            ctypes.byref(net), points.data_ptr(), y.data_ptr(), batch, m, dim, *flags,
-            loss.data_ptr(), ctypes.byref(c), stream()),
-        name,
-    )
+    code = getattr(build.load_library(), entry)(
+        ctypes.byref(net), points.data_ptr(), y.data_ptr(), batch, m, dim, *flags,
+        loss.data_ptr(), ctypes.byref(c), stream())
+    if code == TOO_LARGE:
+        raise ValueError(
+            f"{name}: a field of {config.feature_dim} features and hidden {config.hidden} does "
+            "not fit one CTA of this kernel (its shared memory or the register tiles of its "
+            "weight gradients); at 220 features the f32 kernel takes hidden <= 108 and the "
+            "bf16 kernels hidden <= 104"
+        )
+    build.check(code, name)
     LAUNCHES[name] += 1
     return loss, grads
 

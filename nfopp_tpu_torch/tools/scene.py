@@ -1,8 +1,9 @@
-"""The main path's scene and the card it runs on.
+"""The main path's scene, the card it runs on, and a timer on that card.
 
 `car_world` builds the batched car/parking scene of `bench.py` (rectangle
 footprint (-0.3, 0.2, -0.3, 0.2), bounds [0, 3]^2); `card_line` is the card's
-name and power limit as `nvidia-smi` gives them.
+name and power limit as `nvidia-smi` gives them; `time_ms` times a call with
+CUDA events.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import torch
 
 from ..worlds import RectangleOracle, car_environment, pad_obstacle_points
 
-__all__ = ["car_world", "card_line"]
+__all__ = ["car_world", "card_line", "time_ms"]
 
 
 def car_world(batch: int, device):
@@ -40,3 +41,18 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Milliseconds per call of `fn` on the current CUDA stream (CUDA events
+    around `iters` calls, after `warmup` calls)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters

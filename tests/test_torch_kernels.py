@@ -1,6 +1,9 @@
 """The kernel wrappers' CPU path (their plain PyTorch versions) against the
 TPU kernels run in Pallas interpret mode. The CUDA kernels themselves are
 held against the same plain versions on the card by chip_smoke.py."""
+import importlib
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -108,3 +111,27 @@ def test_wrappers_refuse_other_devices():
         kernels.onf_forward(params_from_jax(params, device="cpu"), meta, config)
     with pytest.raises(ValueError, match="unsupported device"):
         kernels.field_grad(params_from_jax(params, device="cpu"), meta, torch.zeros(1, 5), config)
+
+
+@pytest.mark.parametrize("name,entry,flag", [
+    ("field_grad", "nf_field_grad", 0),
+    ("field_grad_bf16", "nf_field_grad", 1),
+    ("field_grad_multi", "nf_field_grad_multi", 1),
+])
+def test_field_grad_refuses_a_field_too_wide_for_its_kernel(monkeypatch, name, entry, flag):
+    """A field-gradient kernel that cannot hold a field on chip returns
+    TOO_LARGE; the wrapper raises a ValueError naming the widths and counts
+    no launch (the library is stood in for, so this runs without a card)."""
+    from nfopp_tpu_torch.kernels.common import NetArgs
+    from nfopp_tpu_torch.models import init_onf_params
+
+    fg = importlib.import_module("nfopp_tpu_torch.kernels.field_grad")  # the module
+    config = ONFConfig(hidden=112)
+    params = init_onf_params(torch.Generator().manual_seed(0), config, 2, torch.device("cpu"))
+    x, truth = torch.zeros((2, 5, 3)), torch.zeros((2, 5), dtype=torch.bool)
+    library = types.SimpleNamespace(**{entry: lambda *args: fg.TOO_LARGE})
+    monkeypatch.setattr(fg, "net_args", lambda *args: NetArgs())
+    monkeypatch.setattr(fg, "stream", lambda: None)
+    monkeypatch.setattr(fg.build, "load_library", lambda: library)
+    with pytest.raises(ValueError, match="220 features and hidden 112 does not fit"):
+        fg.launch_field_grad(name, entry, params, x, truth, config, flag)

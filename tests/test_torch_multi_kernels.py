@@ -31,7 +31,8 @@ from nfopp_tpu_torch.kernels.common import use_plain
 from nfopp_tpu_torch.models import ONFConfig, params_from_jax
 from nfopp_tpu_torch.utils.tree import tree_leaves
 
-# the four field configurations of chip_smoke.py's check_configs
+# the four field configurations of chip_smoke.py's check_configs that differ
+# in more than the hidden width
 CONFIGS = [
     ONFConfig(mean=0.0, sigma=1.0, use_cos=True, angle_encoding=True),
     ONFConfig(mean=1.0, sigma=3.0, use_cos=True, angle_encoding=False),
