@@ -14,9 +14,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
      of the main path and their bf16 mode (onf_apply's casts); the
      multi-problem kernels in f32 and bf16, with P = 1, 2, 4, 8 problems per
      program giving identical outputs; the collision kernels' bf16 mode; two
-     launches of each field-gradient kernel giving identical bits; then every
-     kernel on the other field configurations at small shapes, in f32 and
-     bf16;
+     launches of each field-gradient and collision-backward kernel giving
+     identical bits; then every kernel on the other field configurations at
+     small shapes, in f32 and bf16, and the collision backward at the widest
+     fields it takes;
   4. main path: the batched car-scene solve (run_planner_config, f32,
      B=256 x 1000 steps, seeded) through the port's entry points, after a
      one-step CUDA-vs-CPU agreement check on 4 problems (then 100 more steps
@@ -43,6 +44,7 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
+from functools import partial
 import pathlib
 import sys
 import time
@@ -88,6 +90,11 @@ BF16_TIE_FLOOR = 8
 CARD_PEAKS = {"H100 PCIe": (51.2e12, 756e12, 2.0e12), "H100 NVL": (60.0e12, 835e12, 3.9e12),
               "H100 SXM": (67.0e12, 989e12, 3.35e12)}
 
+# (hidden, angle harmonics, modes): the widest fields the collision
+# backward's kernels take, 220 features at hidden 108 (f32, the shared-memory
+# limit; bf16 too) and 256 features at hidden 128 (bf16, net_args' limit)
+COLLISION_BWD_WIDEST = ((108, 10, ("float32", "bfloat16")), (128, 28, ("bfloat16",)))
+
 MAIN_PATH = ("onf_forward", "field_grad", "collision_fwd", "collision_bwd")
 BATCH_PATH = ("onf_multi", "field_grad_multi", "collision_fwd_bf16", "collision_bwd_bf16")
 MAIN_PATH_BF16 = ("onf_forward_bf16", "field_grad_bf16", "collision_fwd_bf16", "collision_bwd_bf16")
@@ -109,11 +116,11 @@ SOURCES = {
     "onf_forward": "nfopp_tpu_torch/kernels/csrc/onf_forward.cu",
     "field_grad": "nfopp_tpu_torch/kernels/csrc/field_grad.cu",
     "collision_fwd": "nfopp_tpu_torch/kernels/csrc/collision_terms.cu",
-    "collision_bwd": "nfopp_tpu_torch/kernels/csrc/collision_terms.cu",
+    "collision_bwd": "nfopp_tpu_torch/kernels/csrc/collision_bwd.cu",
     "onf_multi": "nfopp_tpu_torch/kernels/csrc/onf_multi.cu",
     "field_grad_multi": "nfopp_tpu_torch/kernels/csrc/field_grad_multi.cu",
     "collision_fwd_bf16": "nfopp_tpu_torch/kernels/csrc/collision_terms.cu",
-    "collision_bwd_bf16": "nfopp_tpu_torch/kernels/csrc/collision_terms.cu",
+    "collision_bwd_bf16": "nfopp_tpu_torch/kernels/csrc/collision_bwd.cu",
     "onf_forward_bf16": "nfopp_tpu_torch/kernels/csrc/onf_forward.cu",
     "field_grad_bf16": "nfopp_tpu_torch/kernels/csrc/field_grad.cu",
 }
@@ -123,16 +130,26 @@ def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
 
 
-def tensor_core_kernels(build) -> dict:
-    """HMMA (tensor-core) instructions in each kernel of the built library,
-    from `cuobjdump -sass`; raises unless every instantiation of the bf16
-    field-gradient kernel has some."""
+def sass_listing(build) -> str:
+    """`cuobjdump -sass` of the built kernel library."""
     import shutil
     import subprocess
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", str(build.library_path())], capture_output=True,
+    return subprocess.run([tool, "-sass", str(build.library_path())], capture_output=True,
                           text=True, check=True, timeout=300).stdout
+
+
+# the kernels that run their products on the tensor cores, and how many
+# instantiations each has: the field-gradient kernel's two bf16 modes and the
+# collision backward's bf16 mode
+TENSOR_CORE_KERNELS = {"field_grad_tc_kernel": 2, "collision_bwd_tc_kernel": 1}
+
+
+def tensor_core_kernels(sass: str) -> dict:
+    """HMMA (tensor-core) instructions in each field-gradient and collision
+    kernel of a `cuobjdump -sass` listing; raises unless every instantiation
+    of each TENSOR_CORE_KERNELS entry has some."""
     counts, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
@@ -140,10 +157,11 @@ def tensor_core_kernels(build) -> dict:
             counts[name] = 0
         elif name is not None and "HMMA" in line:
             counts[name] += 1
-    tc = {k: v for k, v in counts.items() if "field_grad_tc_kernel" in k}
-    if len(tc) != 2 or not all(tc.values()):
-        raise AssertionError(f"bf16 field-gradient kernels without tensor-core instructions: {tc}")
-    return {k: v for k, v in counts.items() if "field_grad" in k}
+    for kernel, instances in TENSOR_CORE_KERNELS.items():
+        tc = {k: v for k, v in counts.items() if kernel in k}
+        if len(tc) != instances or not all(tc.values()):
+            raise AssertionError(f"{kernel}: instantiations without tensor-core instructions: {tc}")
+    return {k: v for k, v in counts.items() if "field_grad" in k or "collision" in k}
 
 
 def card_peaks(name: str) -> tuple[str, float, float, float]:
@@ -507,6 +525,7 @@ def check_collision(inp: "KernelInputs", onf) -> dict:
         return collision_grads(kernels.collision_terms_plain, params, x3, mult, onf, beta, weights)
 
     got = collision_grads(kernels.collision_terms, params, x3, mult, onf, beta, weights)
+    same_bits("collision_bwd" + suffix, lambda: collision_bwd(params, x3, mult, inp.cot, onf, beta))
     recompute = collision_f64(mult, weights, onf, beta, "apply" if bf16 else None)
     results["collision_bwd" + suffix] = {
         "max_abs_err": hold("collision_bwd" + suffix, got, plain_bwd(),
@@ -638,10 +657,13 @@ def check_configs(device, seed: int) -> dict:
     """Every kernel on the other field configurations (those of the JAX kernel
     tests, tests/test_field_grad_fused.py:13-20, plus bias=False) on small
     shapes that end in partial tiles, against its plain version with the
-    tolerances of phase 3, in f32 and bf16."""
+    tolerances of phase 3, in f32 and bf16; the collision backward at the
+    widest fields its kernels take (COLLISION_BWD_WIDEST); one step past
+    the widest, each launch refuses with a clear error."""
     import torch
 
     from nfopp_tpu_torch import kernels
+    from nfopp_tpu_torch.kernels.collision_terms import collision_bwd
     from nfopp_tpu_torch.models import ONFConfig, init_onf_params
     from nfopp_tpu_torch.utils.tree import tree_leaves
 
@@ -702,21 +724,48 @@ def check_configs(device, seed: int) -> dict:
                                kinks=(params, x, onf, collision_f64(mult, cot, onf, 10.0, casts)),
                                bf16=bf16))
             errors[f"config{i}_m{m}"] = err
-    # one step past those widths a field-gradient launch refuses with a clear error
+    # the collision backward's kernels at the widest fields they take
+    cot3 = cot.to(device).expand(3, 2).contiguous()
+    for hidden, harmonics, dtypes in COLLISION_BWD_WIDEST:
+        base = ONFConfig(mean=0.0, sigma=1.0, hidden=hidden, angle_harmonics=harmonics)
+        params = init_onf_params(g, base, 3, device)
+        x = torch.randn((3, 37, 3), generator=g, device=device) * 2
+        mult = torch.rand((3, 37), generator=g, device=device)
+        for dtype in dtypes:
+            onf = base._replace(compute_dtype=dtype)
+            bf16 = dtype == "bfloat16"
+            recompute = collision_f64(mult, cot, onf, 10.0, "apply" if bf16 else None)
+            errors[f"collision_bwd_{dtype}_{base.feature_dim}x{hidden}"] = hold(
+                f"collision_bwd {dtype} {base.feature_dim} features, hidden {hidden}",
+                collision_bwd(params, x, mult, cot3, onf, 10.0),
+                collision_grads(kernels.collision_terms_plain, params, x, mult, onf, 10.0, cot),
+                [(5e-4, 1e-5), (5e-4, 1e-6)], kinks=(params, x, onf, recompute), bf16=bf16)
+    # one step past those widths a launch refuses with a clear error: the
+    # field-gradient kernels and the f32 collision backward at hidden 112
+    # (220 features), the bf16 collision backward at hidden 136, which
+    # net_args refuses for every kernel
     wide = ONFConfig(mean=0.0, sigma=1.0, use_cos=True, angle_encoding=True, hidden=112)
+    wider = ONFConfig(mean=0.0, sigma=1.0, hidden=136, compute_dtype="bfloat16")
     params = init_onf_params(g, wide, 3, device)
     x = torch.randn((3, 37, 3), generator=g, device=device) * 2
     truth = torch.rand((3, 37), generator=g, device=device) > 0.5
+    mult = torch.rand((3, 37), generator=g, device=device)
+    calls = {}
     for onf in (wide, wide._replace(compute_dtype="bfloat16")):
-        for name, fn in (("field_grad", kernels.field_grad),
-                         ("field_grad_multi", lambda *a: kernels.field_grad_multi(*a, 3))):
-            try:
-                fn(params, x, truth, onf)
-            except ValueError as exc:
-                if "does not fit" not in str(exc):
-                    raise
-            else:
-                raise AssertionError(f"{name} ({onf.compute_dtype}) took hidden 112")
+        calls[f"field_grad {onf.compute_dtype}"] = partial(kernels.field_grad, params, x, truth, onf)
+        calls[f"field_grad_multi {onf.compute_dtype}"] = partial(
+            kernels.field_grad_multi, params, x, truth, onf, 3)
+    calls["collision_bwd float32"] = partial(collision_bwd, params, x, mult, cot3, wide, 10.0)
+    calls["collision_bwd bfloat16, hidden 136"] = partial(
+        collision_bwd, init_onf_params(g, wider, 3, device), x, mult, cot3, wider, 10.0)
+    for label, call in calls.items():
+        try:
+            call()
+        except ValueError as exc:
+            if "does not fit" not in str(exc) and "kernels take hidden <=" not in str(exc):
+                raise
+        else:
+            raise AssertionError(f"{label} took a field wider than its kernel holds")
     return errors
 
 
@@ -948,7 +997,8 @@ def main() -> int:
         for line in ptxas.read_text().splitlines():
             if "registers" in line or "spill" in line or line.startswith("=="):
                 log("  " + line.strip())
-    log(f"HMMA instructions per kernel (cuobjdump -sass): {tensor_core_kernels(build)}")
+    log("HMMA instructions per kernel (cuobjdump -sass): "
+        f"{tensor_core_kernels(sass_listing(build))}")
 
     # 3. kernels against their plain versions
     kernel_results = check_kernels(device, peaks, args.seed, BATCH)

@@ -3,8 +3,8 @@ and the multipliers (the field is frozen during the trajectory update).
 
 CUDA counterpart of `nfopp_tpu/experimental/pallas/collision_terms.py`:
 `_fwd_kernel` and `_bwd_kernel` behind `make_collision_terms`' custom VJP
-become two kernels behind one `torch.autograd.Function`; source in
-`csrc/collision_terms.cu`.
+become two kernels behind one `torch.autograd.Function`; sources in
+`csrc/collision_terms.cu` (forward) and `csrc/collision_bwd.cu` (backward).
 
 Under compute_dtype="bfloat16" the kernels compute what the solver's plain
 path computes, `onf_apply`'s casts and their autograd (xy and the encoding
@@ -20,7 +20,9 @@ import torch
 from ..models.onf import ONFConfig, onf_apply
 from ..ops.losses import softplus_beta
 from . import build
-from .common import LAUNCHES, check_points, check_tensor, is_bf16, net_args, stream, use_plain
+from .common import (
+    LAUNCHES, TOO_LARGE, check_points, check_tensor, is_bf16, net_args, stream, use_plain,
+)
 
 __all__ = ["collision_terms", "collision_terms_plain", "collision_fwd", "collision_bwd"]
 
@@ -66,13 +68,17 @@ def collision_bwd(params, positions, multipliers, g, config: ONFConfig, beta: fl
     name = "collision_bwd_bf16" if bf16 else "collision_bwd"
     d_positions = torch.empty_like(positions)
     d_multipliers = torch.empty_like(multipliers)
-    build.check(
-        build.load_library().nf_collision_bwd(
-            ctypes.byref(net), positions.data_ptr(), multipliers.data_ptr(), g.data_ptr(),
-            batch, m, dim, float(beta), int(bf16), d_positions.data_ptr(),
-            d_multipliers.data_ptr(), stream()),
-        name,
-    )
+    code = build.load_library().nf_collision_bwd(
+        ctypes.byref(net), positions.data_ptr(), multipliers.data_ptr(), g.data_ptr(),
+        batch, m, dim, float(beta), int(bf16), d_positions.data_ptr(),
+        d_multipliers.data_ptr(), stream())
+    if code == TOO_LARGE:
+        raise ValueError(
+            f"{name}: a field of {config.feature_dim} features and hidden {config.hidden} does "
+            "not fit one CTA of this kernel (its shared memory); at 220 features the f32 kernel "
+            "takes hidden <= 108, the bf16 kernel hidden <= 128 at up to 256 features"
+        )
+    build.check(code, name)
     LAUNCHES[name] += 1
     return d_positions, d_multipliers
 

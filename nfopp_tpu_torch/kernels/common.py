@@ -15,7 +15,7 @@ from ..models.onf import ONFConfig
 
 __all__ = [
     "LAUNCHES", "reset_launches", "NetArgs", "net_args", "use_plain", "is_bf16",
-    "check_problems_per_program", "check_points", "check_tensor", "stream",
+    "check_problems_per_program", "check_points", "check_tensor", "stream", "TOO_LARGE",
 ]
 
 # launches of each kernel, counted by its wrapper where it launches it; the
@@ -31,6 +31,10 @@ LAUNCHES = {
 # slot, at most two feature columns per thread slot
 MAX_HIDDEN = 128
 MAX_FEATURES = 256
+
+# what a launch returns for a field too large for its kernel
+# (csrc/field_grad.cuh); not a CUDA error code
+TOO_LARGE = -1
 
 
 def reset_launches() -> None:

@@ -97,6 +97,85 @@ __device__ __forceinline__ float w3_operand(float g) {
   return P == BF16_MULTI ? rnd<P>(g) : g;
 }
 
+// --------------------------------- shared with collision_bwd.cu (kernel 3b) --
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ float bf(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float bf(float v) { return v; }
+
+__device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// Rows row0 .. row0 + ROWS of x [M, dim] (this problem's), normalised
+// (rounded under BF16_APPLY) into xn, yn, th; rows past M read as the origin.
+template <int P, int ROWS>
+__device__ inline void load_poses(const float* x, int M, int dim, int row0, const NetArgs& n,
+                                  float* xn, float* yn, float* th) {
+  const int t = threadIdx.x;
+  if (t < ROWS) {
+    const int row = row0 + t;
+    float px = 0.f, py = 0.f, pt = 0.f;
+    if (row < M) {
+      const float* p = x + (size_t)row * dim;
+      px = p[0];
+      py = p[1];
+      if (dim > 2) pt = p[2];
+    }
+    xn[t] = rnd_enc<P>((px - n.mean) / n.sigma);
+    yn[t] = rnd_enc<P>((py - n.mean) / n.sigma);
+    th[t] = pt;
+  }
+}
+
+// Problem b's f32 weights into shared memory (a CTA of NT threads): W1, W2
+// [k][column] at row stride ldw, out.w, the encoding weights and biases.
+template <int NT>
+__device__ inline void load_f32_weights(const NetArgs& n, int b, float* w1, float* w2, int ldw,
+                                        float* w3, float* ew, float* eb, float* b1, float* b2,
+                                        float* ab) {
+  const int tid = threadIdx.x, F = n.F, A = n.A, HID = n.HID, FEAT = F + A;
+  const float* src = n.w1 + (size_t)b * FEAT * HID;
+  for (int i = tid; i < FEAT * HID; i += NT) {
+    const int k = i / HID, c = i - k * HID;
+    w1[k * ldw + c] = src[i];
+  }
+  src = n.w2 + (size_t)b * HID * HID;
+  for (int i = tid; i < HID * HID; i += NT) {
+    const int k = i / HID, c = i - k * HID;
+    w2[k * ldw + c] = src[i];
+  }
+  for (int i = tid; i < HID + FEAT; i += NT) w3[i] = n.w3[(size_t)b * (HID + FEAT) + i];
+  for (int i = tid; i < 2 * F; i += NT) ew[i] = n.ew[(size_t)b * 2 * F + i];
+  for (int i = tid; i < F; i += NT) eb[i] = n.eb[(size_t)b * F + i];
+  for (int i = tid; i < HID; i += NT) {
+    b1[i] = n.b1[(size_t)b * HID + i];
+    b2[i] = n.b2[(size_t)b * HID + i];
+  }
+  for (int i = tid; i < A; i += NT) ab[i] = n.ab[(size_t)b * A + i];
+}
+
+// This lane's share of z = [h2 | features] . out.w at rows warp + WARPS q,
+// q < RW (h2 and features row-major, f32 or bf16); warp_sum completes it.
+template <int WARPS, int RW, typename T>
+__device__ inline void head_partial(float acc[RW], const T* h2, int ldh, const T* feat, int ldf,
+                                    const float* w3, int HID, int FEAT) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int q = 0; q < RW; ++q) acc[q] = 0.f;
+  for (int j = lane; j < HID; j += 32) {
+    const float w = w3[j];
+#pragma unroll
+    for (int q = 0; q < RW; ++q) acc[q] = fmaf(bf(h2[(warp + q * WARPS) * ldh + j]), w, acc[q]);
+  }
+  for (int k = lane; k < FEAT; k += 32) {
+    const float w = w3[HID + k];
+#pragma unroll
+    for (int q = 0; q < RW; ++q) acc[q] = fmaf(bf(feat[(warp + q * WARPS) * ldf + k]), w, acc[q]);
+  }
+}
+
 // ------------------------------------------------------------------ F32 ----
 
 // Returned by a launch whose field does not fit one CTA of its kernel on chip
@@ -275,6 +354,24 @@ __device__ __forceinline__ float feature_arg(const NetArgs& n, const float* ew, 
   return (tr + ab[a]) * *freq;
 }
 
+// Features [row][k] of TM rows by a CTA of NT threads, and where `slope` is
+// given the slope of each (d feature / d its pre-activation), from one
+// sincosf.
+template <int NT>
+__device__ inline void f32_features(const NetArgs& n, const float* ew, const float* eb,
+                                    const float* ab, const float* xn, const float* yn,
+                                    const float* th, float* feat, float* slope, int ldf) {
+  const int FEAT = n.F + n.A;
+  for (int i = threadIdx.x; i < TM * FEAT; i += NT) {
+    const int r = i / FEAT, k = i - r * FEAT;
+    bool is_cos;
+    float freq, sv, cv;
+    sincosf(feature_arg(n, ew, eb, ab, xn[r], yn[r], th[r], k, &is_cos, &freq), &sv, &cv);
+    feat[r * ldf + k] = is_cos ? cv : sv;
+    if (slope) slope[r * ldf + k] = is_cos ? -sv : cv;
+  }
+}
+
 // (a template, instantiated for F32 only, so that the header can be included
 // by several translation units)
 template <int P>
@@ -299,26 +396,7 @@ field_grad_f32_kernel(const float* __restrict__ x, const float* __restrict__ y, 
   // zero everything: padding rows and columns stay zero, sums start at zero
   for (int i = tid; i < L.total / 4; i += THREADS) smem_f4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   __syncthreads();
-  {
-    const float* src = n.w1 + (size_t)b * FEAT * HID;
-    for (int i = tid; i < FEAT * HID; i += THREADS) {
-      const int k = i / HID, c = i - k * HID;
-      w1[k * ldw + c] = src[i];
-    }
-    src = n.w2 + (size_t)b * HID * HID;
-    for (int i = tid; i < HID * HID; i += THREADS) {
-      const int k = i / HID, c = i - k * HID;
-      w2[k * ldw + c] = src[i];
-    }
-    for (int i = tid; i < HID + FEAT; i += THREADS) w3[i] = n.w3[(size_t)b * (HID + FEAT) + i];
-    for (int i = tid; i < 2 * F; i += THREADS) ew[i] = n.ew[(size_t)b * 2 * F + i];
-    for (int i = tid; i < F; i += THREADS) eb[i] = n.eb[(size_t)b * F + i];
-    for (int i = tid; i < HID; i += THREADS) {
-      b1[i] = n.b1[(size_t)b * HID + i];
-      b2[i] = n.b2[(size_t)b * HID + i];
-    }
-    for (int i = tid; i < A; i += THREADS) ab[i] = n.ab[(size_t)b * A + i];
-  }
+  load_f32_weights<THREADS>(n, b, w1, w2, ldw, w3, ew, eb, b1, b2, ab);
   const float b3 = n.b3[b];
   x += (size_t)b * M * dim;
   y += (size_t)b * M;
@@ -331,32 +409,11 @@ field_grad_f32_kernel(const float* __restrict__ x, const float* __restrict__ y, 
   float dw1[KC][CC][4][4] = {}, dw2[CC][4][4] = {};
 
   for (int row0 = 0; row0 < M; row0 += TM) {
-    // rows row0 .. row0 + TM, normalised; rows past M read as the origin,
-    // and their g is zero
-    if (tid < TM) {
-      const int row = row0 + tid;
-      float px = 0.f, py = 0.f, pt = 0.f;
-      if (row < M) {
-        const float* p = x + (size_t)row * dim;
-        px = p[0];
-        py = p[1];
-        if (dim > 2) pt = p[2];
-      }
-      xn[tid] = (px - n.mean) / n.sigma;
-      yn[tid] = (py - n.mean) / n.sigma;
-      th[tid] = pt;
-    }
+    // rows row0 .. row0 + TM (rows past M: g is zero), their features, and
+    // the slopes where there is room for them
+    load_poses<F32, TM>(x, M, dim, row0, n, xn, yn, th);
     __syncthreads();
-    // features, and the slope of each (d feature / d its pre-activation)
-    // from the same sincosf where there is room for it
-    for (int i = tid; i < TM * FEAT; i += THREADS) {
-      const int r = i / FEAT, k = i - r * FEAT;
-      bool is_cos;
-      float freq, sv, cv;
-      sincosf(feature_arg(n, ew, eb, ab, xn[r], yn[r], th[r], k, &is_cos, &freq), &sv, &cv);
-      feat[r * ldf + k] = is_cos ? cv : sv;
-      if (slope) slope[r * ldf + k] = is_cos ? -sv : cv;
-    }
+    f32_features<THREADS>(n, ew, eb, ab, xn, yn, th, feat, slope, ldf);
     __syncthreads();
     dense_relu_f32(feat, ldf, 4 * NF, w1, ldw, b1, NH, h1, ldh);
     __syncthreads();
@@ -366,17 +423,8 @@ field_grad_f32_kernel(const float* __restrict__ x, const float* __restrict__ y, 
     // each row: warp w takes rows w + 8 q, all four at once, and lane q
     // finishes row w + 8 q
     {
-      float acc[4] = {};
-      for (int j = lane; j < HID; j += 32) {
-        const float w = w3[j];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[q] = fmaf(h2[(warp + 8 * q) * ldh + j], w, acc[q]);
-      }
-      for (int k = lane; k < FEAT; k += 32) {
-        const float w = w3[HID + k];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[q] = fmaf(feat[(warp + 8 * q) * ldf + k], w, acc[q]);
-      }
+      float acc[4];
+      head_partial<WARPS, 4>(acc, h2, ldh, feat, ldf, w3, HID, FEAT);
       float z = 0.f;
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
@@ -602,8 +650,6 @@ field_grad_f32_kernel(const float* __restrict__ x, const float* __restrict__ y, 
 
 // ----------------------------------------------------- bf16, tensor cores ----
 
-typedef __nv_bfloat16 bf16;
-
 constexpr int TR = 32;             // rows per tile: two m16 MMA tiles
 constexpr int MT = TR / 16;        // m16 tiles per row tile
 // 16 warps, at the 128 registers each that the register file allows them:
@@ -698,12 +744,6 @@ __device__ __forceinline__ void load_b_trans(uint32_t b[2], const bf16* S, int l
   ldsm_x2_trans(b, S + (k0 + mi * 8 + rr) * ld + n0);
 }
 
-__device__ __forceinline__ float bf(bf16 v) { return __bfloat162float(v); }
-
-__device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
 // Sum of v over the 8 lanes that share lane % 4 (the rows g of an
 // accumulator fragment), in a fixed order.
 __device__ __forceinline__ float sum_over_rows(float v) {
@@ -713,28 +753,29 @@ __device__ __forceinline__ float sum_over_rows(float v) {
   return v;
 }
 
-// acc[j][m] (m16 tile m of the row tile) += X [TR x K] . B [K x 8] at
-// columns 8 (nt + WARPS j), for the pair of 8-column tiles nt and nt + WARPS (the
-// second when `both`): B = W for a row-major W [k][n] (TRANS_W false), or
-// B = W^T for a row-major W [n][k] (TRANS_W true). The pair shares the A
-// fragments and gives four independent accumulator chains.
-template <bool TRANS_W>
-__device__ __forceinline__ void pair_product(float acc[2][MT][4], const bf16* X, int ldx, int K,
-                                             const bf16* W, int ldw, int nt, bool both) {
+// acc[j][m] (m16 tile m of the row tile) += X [16 MTILES x K] . B [K x 8] at
+// columns 8 (nt + WARPS j), for the pair of 8-column tiles nt and nt + WARPS
+// (the second when `both`; WARPS, the CTA's warps): B = W for a row-major W
+// [k][n] (TRANS_W false), or B = W^T for a row-major W [n][k] (TRANS_W true).
+// The pair shares the A fragments and gives 2 MTILES independent accumulator
+// chains.
+template <bool TRANS_W, int WARPS = TC_WARPS, int MTILES = MT>
+__device__ __forceinline__ void pair_product(float acc[2][MTILES][4], const bf16* X, int ldx,
+                                             int K, const bf16* W, int ldw, int nt, bool both) {
   for (int k0 = 0; k0 < K; k0 += 16) {
     uint32_t b[2][2];
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       if (j == 0 || both) {
         if constexpr (TRANS_W) {
-          load_b(b[j], W, ldw, (nt + TC_WARPS * j) * 8, k0);
+          load_b(b[j], W, ldw, (nt + WARPS * j) * 8, k0);
         } else {
-          load_b_trans(b[j], W, ldw, (nt + TC_WARPS * j) * 8, k0);
+          load_b_trans(b[j], W, ldw, (nt + WARPS * j) * 8, k0);
         }
       }
     }
 #pragma unroll
-    for (int m = 0; m < MT; ++m) {
+    for (int m = 0; m < MTILES; ++m) {
       uint32_t a[4];
       load_a(a, X, ldx, m * 16, k0);
       mma_bf16(acc[0][m], a, b[0]);
@@ -757,22 +798,24 @@ __device__ __forceinline__ void tile_outer(float acc[4], const bf16* S1, int ld1
   }
 }
 
-// O [TR x 8 NH] = bf16(relu(X . W + bias)) for a row-major W [k][n]; a warp
-// computes the 8-column tiles warp + 8 j, two at a time.
+// O [16 MTILES x 8 NH] = bf16(relu(X . W + bias)) for a row-major W [k][n];
+// warp w of the CTA's WARPS computes the 8-column tiles w + WARPS j, two at a
+// time.
+template <int WARPS = TC_WARPS, int MTILES = MT>
 __device__ inline void tc_dense_relu(const bf16* X, int ldx, int K, const bf16* W, int ldw,
                                      const float* bias, int NH, bf16* O, int ldo) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  for (int nt = warp; nt < NH; nt += 2 * TC_WARPS) {
-    const bool both = nt + TC_WARPS < NH;
-    float acc[2][MT][4] = {};
-    pair_product<false>(acc, X, ldx, K, W, ldw, nt, both);
+  for (int nt = warp; nt < NH; nt += 2 * WARPS) {
+    const bool both = nt + WARPS < NH;
+    float acc[2][MTILES][4] = {};
+    pair_product<false, WARPS, MTILES>(acc, X, ldx, K, W, ldw, nt, both);
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       if (j == 1 && !both) break;
-      const int c = (nt + TC_WARPS * j) * 8 + 2 * t;
+      const int c = (nt + WARPS * j) * 8 + 2 * t;
       const float b0 = bias[c], b1 = bias[c + 1];
 #pragma unroll
-      for (int m = 0; m < MT; ++m) {
+      for (int m = 0; m < MTILES; ++m) {
         const int r = m * 16 + g;
         store_pair(O + r * ldo + c, fmaxf(acc[j][m][0] + b0, 0.f), fmaxf(acc[j][m][1] + b1, 0.f));
         store_pair(O + (r + 8) * ldo + c, fmaxf(acc[j][m][2] + b0, 0.f),
@@ -783,21 +826,63 @@ __device__ inline void tc_dense_relu(const bf16* X, int ldx, int K, const bf16* 
 }
 
 // dst[k * ld + c] = bf16(src[k * cols + c]) for a row-major src [rows][cols]
-// four values per load where cols and the alignment allow it
+// by a CTA of THREADS threads, four values per load where cols and the
+// alignment allow it
+template <int THREADS_ = TC_THREADS>
 __device__ inline void load_bf16_rows(bf16* dst, int ld, const float* __restrict__ src, int rows,
                                       int cols) {
   if (cols % 4 == 0 && reinterpret_cast<size_t>(src) % 16 == 0) {
     const float4* src4 = reinterpret_cast<const float4*>(src);
-    for (int i = threadIdx.x; i < rows * cols / 4; i += TC_THREADS) {
+    for (int i = threadIdx.x; i < rows * cols / 4; i += THREADS_) {
       const float4 v = src4[i];
       const int k = 4 * i / cols, c = 4 * i - k * cols;
       store_pair(dst + k * ld + c, v.x, v.y);
       store_pair(dst + k * ld + c + 2, v.z, v.w);
     }
   } else {
-    for (int i = threadIdx.x; i < rows * cols; i += TC_THREADS) {
+    for (int i = threadIdx.x; i < rows * cols; i += THREADS_) {
       const int k = i / cols, c = i - k * cols;
       dst[k * ld + c] = __float2bfloat16_rn(src[i]);
+    }
+  }
+}
+
+// Problem b's weights for a tensor-core kernel (a CTA of NT threads): W1, W2
+// rounded into bf16 at row stride ldh, out.w rounded, the encoding weights
+// rounded under BF16_APPLY, biases f32.
+template <int P, int NT>
+__device__ inline void load_tc_weights(const NetArgs& n, int b, bf16* w1, bf16* w2, int ldh,
+                                       float* w3, float* ew, float* eb, float* b1, float* b2,
+                                       float* ab) {
+  const int tid = threadIdx.x, F = n.F, A = n.A, HID = n.HID, FEAT = F + A;
+  load_bf16_rows<NT>(w1, ldh, n.w1 + (size_t)b * FEAT * HID, FEAT, HID);
+  load_bf16_rows<NT>(w2, ldh, n.w2 + (size_t)b * HID * HID, HID, HID);
+  for (int i = tid; i < HID + FEAT; i += NT) w3[i] = rnd<P>(n.w3[(size_t)b * (HID + FEAT) + i]);
+  for (int i = tid; i < 2 * F; i += NT) ew[i] = rnd_enc<P>(n.ew[(size_t)b * 2 * F + i]);
+  for (int i = tid; i < F; i += NT) eb[i] = n.eb[(size_t)b * F + i];
+  for (int i = tid; i < HID; i += NT) {
+    b1[i] = n.b1[(size_t)b * HID + i];
+    b2[i] = n.b2[(size_t)b * HID + i];
+  }
+  for (int i = tid; i < A; i += NT) ab[i] = n.ab[(size_t)b * A + i];
+}
+
+// Features [row][k] of ROWS rows, rounded (product operands), and in f32 the
+// slope of each (d feature / d its pre-activation) from the same sincosf;
+// warp w of WARPS takes rows w + WARPS q, its lanes the features.
+template <int WARPS, int ROWS>
+__device__ inline void tc_features(const NetArgs& n, const float* ew, const float* eb,
+                                   const float* ab, const float* xn, const float* yn,
+                                   const float* th, bf16* feat, float* slope, int ldf) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, FEAT = n.F + n.A;
+  for (int r = warp; r < ROWS; r += WARPS) {
+    const float xr = xn[r], yr = yn[r], tr = th[r];
+    for (int k = lane; k < FEAT; k += 32) {
+      bool is_cos;
+      float freq, sv, cv;
+      sincosf(feature_arg(n, ew, eb, ab, xr, yr, tr, k, &is_cos, &freq), &sv, &cv);
+      feat[r * ldf + k] = __float2bfloat16_rn(is_cos ? cv : sv);
+      slope[r * ldf + k] = is_cos ? -sv : cv;
     }
   }
 }
@@ -841,21 +926,7 @@ field_grad_tc_kernel(const float* __restrict__ x, const float* __restrict__ y, i
   // zero everything: padding rows and columns stay zero, sums start at zero
   for (int i = tid; i < L.total / 16; i += TC_THREADS) smem_f4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   __syncthreads();
-  // problem b's weights: W1, W2 rounded into bf16, out.w rounded, the
-  // encoding weights rounded under BF16_APPLY, biases f32
-  {
-    load_bf16_rows(w1, L.ldh, n.w1 + (size_t)b * FEAT * HID, FEAT, HID);
-    load_bf16_rows(w2, L.ldh, n.w2 + (size_t)b * HID * HID, HID, HID);
-    for (int i = tid; i < HID + FEAT; i += TC_THREADS)
-      w3[i] = rnd<P>(n.w3[(size_t)b * (HID + FEAT) + i]);
-    for (int i = tid; i < 2 * F; i += TC_THREADS) ew[i] = rnd_enc<P>(n.ew[(size_t)b * 2 * F + i]);
-    for (int i = tid; i < F; i += TC_THREADS) eb[i] = n.eb[(size_t)b * F + i];
-    for (int i = tid; i < HID; i += TC_THREADS) {
-      b1[i] = n.b1[(size_t)b * HID + i];
-      b2[i] = n.b2[(size_t)b * HID + i];
-    }
-    for (int i = tid; i < A; i += TC_THREADS) ab[i] = n.ab[(size_t)b * A + i];
-  }
+  load_tc_weights<P, TC_THREADS>(n, b, w1, w2, L.ldh, w3, ew, eb, b1, b2, ab);
   const float b3 = n.b3[b];
   x += (size_t)b * M * dim;
   y += (size_t)b * M;
@@ -867,35 +938,11 @@ field_grad_tc_kernel(const float* __restrict__ x, const float* __restrict__ y, i
   for (int q = 0; q < MAX_W1_TILES; ++q) dw1[q][0] = dw1[q][1] = dw1[q][2] = dw1[q][3] = 0.f;
 
   for (int row0 = 0; row0 < M; row0 += TR) {
-    // rows row0 .. row0 + TR, normalised (rounded under BF16_APPLY); rows
-    // past M read as the origin, and their g is zero
-    if (tid < TR) {
-      const int row = row0 + tid;
-      float px = 0.f, py = 0.f, pt = 0.f;
-      if (row < M) {
-        const float* p = x + (size_t)row * dim;
-        px = p[0];
-        py = p[1];
-        if (dim > 2) pt = p[2];
-      }
-      xn[tid] = rnd_enc<P>((px - n.mean) / n.sigma);
-      yn[tid] = rnd_enc<P>((py - n.mean) / n.sigma);
-      th[tid] = pt;
-    }
+    // rows row0 .. row0 + TR (rows past M: g is zero), their features and
+    // the slopes for the encoding gradients
+    load_poses<P, TR>(x, M, dim, row0, n, xn, yn, th);
     __syncthreads();
-    // features [row][k], rounded (product operands), and in f32 the slope
-    // of each (d feature / d its pre-activation) for the encoding gradients;
-    // warp w takes rows w + 16 q, its lanes the features
-    for (int r = warp; r < TR; r += TC_WARPS) {
-      const float xr = xn[r], yr = yn[r], tr = th[r];
-      for (int k = lane; k < FEAT; k += 32) {
-        bool is_cos;
-        float freq, sv, cv;
-        sincosf(feature_arg(n, ew, eb, ab, xr, yr, tr, k, &is_cos, &freq), &sv, &cv);
-        feat[r * L.ldf + k] = __float2bfloat16_rn(is_cos ? cv : sv);
-        slope[r * L.ldf + k] = is_cos ? -sv : cv;
-      }
-    }
+    tc_features<TC_WARPS, TR>(n, ew, eb, ab, xn, yn, th, feat, slope, L.ldf);
     __syncthreads();
     tc_dense_relu(feat, L.ldf, L.KF, w1, L.ldh, b1, NH, h1, L.ldh);
     __syncthreads();
@@ -907,19 +954,8 @@ field_grad_tc_kernel(const float* __restrict__ x, const float* __restrict__ y, i
     {
       constexpr int RW = TR / TC_WARPS;
       static_assert(TR % TC_WARPS == 0, "every warp takes as many rows");
-      float acc[RW] = {};
-      for (int j = lane; j < HID; j += 32) {
-        const float w = w3[j];
-#pragma unroll
-        for (int q = 0; q < RW; ++q)
-          acc[q] = fmaf(bf(h2[(warp + q * TC_WARPS) * L.ldh + j]), w, acc[q]);
-      }
-      for (int k = lane; k < FEAT; k += 32) {
-        const float w = w3[HID + k];
-#pragma unroll
-        for (int q = 0; q < RW; ++q)
-          acc[q] = fmaf(bf(feat[(warp + q * TC_WARPS) * L.ldf + k]), w, acc[q]);
-      }
+      float acc[RW];
+      head_partial<TC_WARPS, RW>(acc, h2, L.ldh, feat, L.ldf, w3, HID, FEAT);
       float z = 0.f;
 #pragma unroll
       for (int q = 0; q < RW; ++q) {

@@ -300,77 +300,6 @@ __device__ __forceinline__ float head_cotangent(float g, float w) {
   }
 }
 
-// h2 := d pre2 = [h2 > 0] * g[r] * out.w[c]  (g = d logits per row).
-template <int P>
-__device__ inline void head_backprop(const NetArgs& n, const Layout& L, float* s) {
-  for (int i = threadIdx.x; i < n.HID * TM; i += THREADS) {
-    const int c = i / TM, r = i - c * TM;
-    float* h = s + L.h2 + c * LDT + r;
-    *h = *h > 0.f ? head_cotangent<P>(s[L.g + r], s[L.w3 + c]) : 0.f;
-  }
-}
-
-// act[c][r] := [act > 0] * sum_j dout[j][r] * W[c][j]  (ReLU layer backward
-// into its input; `act` holds that layer's input activations). BF16_APPLY
-// rounds the sum (the cotangent of the cast on `act`); BF16_MULTI leaves it
-// f32 and its caller rounds it after the bias-gradient row sums.
-template <int P>
-__device__ inline void relu_backprop(const float* s_dout, int K, const float* s_w, int ldw, int N,
-                                     float* s_act) {
-  const int c = threadIdx.x % CSLOTS, r0 = (threadIdx.x / CSLOTS) * RPT;
-  if (c >= N) return;
-  float acc[RPT];
-#pragma unroll
-  for (int q = 0; q < RPT; ++q) acc[q] = 0.f;
-  mm_rows(s_dout + r0, K, s_w + c * ldw, 1, acc);
-  float4* p = reinterpret_cast<float4*>(s_act + c * LDT + r0);
-  constexpr int R = P == BF16_APPLY ? P : F32;
-#pragma unroll
-  for (int q = 0; q < RPT / 4; ++q) {
-    const float4 h = p[q];
-    p[q] = make_float4(h.x > 0.f ? rnd<R>(acc[4 * q]) : 0.f,
-                       h.y > 0.f ? rnd<R>(acc[4 * q + 1]) : 0.f,
-                       h.z > 0.f ? rnd<R>(acc[4 * q + 2]) : 0.f,
-                       h.w > 0.f ? rnd<R>(acc[4 * q + 3]) : 0.f);
-  }
-}
-
-// d feature k for the thread's RPT rows: g[r] * out.w[HID + k] + sum_c
-// dh1[c][r] * W1[k][c], with dh1 in the h1 tile. Under BF16_APPLY each of
-// the two terms is a cast's cotangent and is rounded on its own.
-template <int P>
-__device__ inline void feature_grad(const NetArgs& n, const Layout& L, const float* s, int k,
-                                    float acc[RPT]) {
-  const int r0 = (threadIdx.x / CSLOTS) * RPT;
-#pragma unroll
-  for (int q = 0; q < RPT; ++q) acc[q] = 0.f;
-  mm_rows(s + L.h1 + r0, n.HID, s + L.w1 + k * L.ldw1, 1, acc);
-  const float w = s[L.w3 + n.HID + k];
-#pragma unroll
-  for (int q = 0; q < RPT; ++q) {
-    if constexpr (P == BF16_APPLY) {
-      acc[q] = rnd<P>(acc[q]) + head_cotangent<P>(s[L.g + r0 + q], w);
-    } else {
-      acc[q] = fmaf(rnd<P>(s[L.g + r0 + q]), w, acc[q]);
-    }
-  }
-}
-
-// d feature -> d its pre-activation (encoding output, or angle phase), with
-// the sin/cos recomputed from the row's inputs. Sets *freq for angle features.
-__device__ __forceinline__ float feature_pre_grad(const NetArgs& n, const Layout& L,
-                                                  const float* s, int k, int r, float dfeat,
-                                                  float* freq) {
-  if (k < n.F) {
-    const float e = fourier_pre(n, L, s, k, r);
-    *freq = 0.f;
-    return ((n.use_cos && k >= n.F / 2) ? -sinf(e) : cosf(e)) * dfeat;
-  }
-  const int a = k - n.F;
-  const float ph = angle_phase(n, L, s, a, r, freq);
-  return ((a < n.A / 2) ? cosf(ph) : -sinf(ph)) * dfeat;
-}
-
 // Launch helper: checks and sets the dynamic shared memory of `kernel`.
 template <typename Kernel>
 inline cudaError_t prepare_launch(Kernel kernel, const Layout& L, size_t* bytes) {

@@ -20,13 +20,11 @@ from ..models.onf import ONFConfig, onf_apply
 from ..ops.losses import bce_with_logits
 from ..utils.tree import tree_leaves, tree_map
 from . import build
-from .common import LAUNCHES, check_points, check_tensor, is_bf16, net_args, stream, use_plain
+from .common import (
+    LAUNCHES, TOO_LARGE, check_points, check_tensor, is_bf16, net_args, stream, use_plain,
+)
 
 __all__ = ["field_grad", "field_grad_plain", "launch_field_grad"]
-
-# what a field-gradient launch returns for a field too large for its kernel
-# (csrc/field_grad.cuh)
-TOO_LARGE = -1
 
 
 class _Grads(ctypes.Structure):

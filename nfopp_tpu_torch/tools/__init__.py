@@ -1,3 +1,4 @@
 """Drivers of the port on a CUDA card: the main path's car scene, the
 per-step profiler (`python3 -m nfopp_tpu_torch.tools.profile_step`) and the
-field-gradient kernels' timer (`python3 -m nfopp_tpu_torch.tools.time_field_grad`)."""
+field-gradient and collision kernels' timer
+(`python3 -m nfopp_tpu_torch.tools.time_kernels`)."""

@@ -239,3 +239,44 @@ def test_hold_bf16_accepts_a_unit_flipped_within_a_tie_reach():
     assert cs.hold("tie", got, want, tols, kinks=(params, x, BF16, recompute), bf16=True) > 0
     with pytest.raises(AssertionError, match="problem 0 misses its bound"):
         cs.hold("as f32", got, want, tols, kinks=(params, x, BF16, recompute))
+
+
+# made-up `cuobjdump -sass` listings: each kernel's name, then its lines
+FIELD_TC = ("_Z20field_grad_tc_kernelILi1EEvPKfS1_iiN2nf7NetArgsEPfNS2_5GradsE",
+            "_Z20field_grad_tc_kernelILi2EEvPKfS1_iiN2nf7NetArgsEPfNS2_5GradsE")
+COLLISION_TC = "_ZN12_GLOBAL__N_123collision_bwd_tc_kernelILi2EEEvPKfS2_S2_iiN2nf7NetArgsEfPfS5_"
+OTHERS = ("_Z21field_grad_f32_kernelILi0EEvPKfS1_iiN2nf7NetArgsEPfNS2_5GradsE",
+          "_ZN12_GLOBAL__N_124collision_bwd_f32_kernelILi0EEEvPKfS2_S2_iiN2nf7NetArgsEfPfS5_",
+          "_Z20collision_fwd_kernelILi0EEvPKfS1_iiN2nf7NetArgsEfPf",
+          "_ZN2nf17onf_logits_kernelILi2EEEvPKfiiNS_7NetArgsEPf")
+
+
+def sass_listing(hmma: dict) -> str:
+    lines = ["", "Fatbin elf code:", "================", "arch = sm_90a"]
+    for name, count in hmma.items():
+        lines += ["", f"\tcode for sm_90a", f"\t\tFunction : {name}",
+                  "        /*0000*/                   LDC R1, c[0x0][0x28] ;"]
+        lines += ["        /*0010*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;"] * count
+        lines += ["        /*0020*/                   FFMA R5, R6, R7, R5 ;", "        /*0030*/   EXIT ;"]
+    return "\n".join(lines)
+
+
+def test_tensor_core_kernels_counts_hmma_of_the_field_and_collision_kernels():
+    hmma = {FIELD_TC[0]: 128, FIELD_TC[1]: 128, COLLISION_TC: 56, **{name: 0 for name in OTHERS}}
+    counts = cs.tensor_core_kernels(sass_listing(hmma))
+    assert counts == {name: n for name, n in hmma.items() if "onf_logits" not in name}
+
+
+@pytest.mark.parametrize("missing", [COLLISION_TC, FIELD_TC[1]])
+def test_tensor_core_kernels_raises_without_hmma_in_a_tensor_core_kernel(missing):
+    """A bf16 kernel compiled without tensor-core instructions (or missing
+    from the library) fails the check: the bf16 collision backward as the
+    field-gradient kernels."""
+    hmma = {FIELD_TC[0]: 128, FIELD_TC[1]: 128, COLLISION_TC: 56, **{name: 0 for name in OTHERS}}
+    hmma[missing] = 0
+    kernel = "collision_bwd_tc_kernel" if missing == COLLISION_TC else "field_grad_tc_kernel"
+    with pytest.raises(AssertionError, match=f"{kernel}: instantiations without tensor-core"):
+        cs.tensor_core_kernels(sass_listing(hmma))
+    del hmma[missing]
+    with pytest.raises(AssertionError, match=kernel):
+        cs.tensor_core_kernels(sass_listing(hmma))

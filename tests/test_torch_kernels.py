@@ -135,3 +135,28 @@ def test_field_grad_refuses_a_field_too_wide_for_its_kernel(monkeypatch, name, e
     monkeypatch.setattr(fg.build, "load_library", lambda: library)
     with pytest.raises(ValueError, match="220 features and hidden 112 does not fit"):
         fg.launch_field_grad(name, entry, params, x, truth, config, flag)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_collision_bwd_refuses_a_field_too_wide_for_its_kernel(monkeypatch, compute_dtype):
+    """A collision-backward kernel that cannot hold a field in one CTA's
+    shared memory returns TOO_LARGE; the wrapper raises a ValueError naming
+    the widths and each mode's limit, and counts no launch (the library is
+    stood in for, so this runs without a card)."""
+    from nfopp_tpu_torch.kernels.common import TOO_LARGE, NetArgs
+    from nfopp_tpu_torch.models import init_onf_params
+
+    ct = importlib.import_module("nfopp_tpu_torch.kernels.collision_terms")  # the module
+    config = ONFConfig(hidden=112, compute_dtype=compute_dtype)
+    params = init_onf_params(torch.Generator().manual_seed(0), config, 2, torch.device("cpu"))
+    x, mult, g = torch.zeros((2, 5, 3)), torch.zeros((2, 5)), torch.ones((2, 2))
+    calls = []
+    library = types.SimpleNamespace(nf_collision_bwd=lambda *args: calls.append(args) or TOO_LARGE)
+    monkeypatch.setattr(ct, "net_args", lambda *args: NetArgs())
+    monkeypatch.setattr(ct, "stream", lambda: None)
+    monkeypatch.setattr(ct.build, "load_library", lambda: library)
+    with pytest.raises(ValueError, match="220 features and hidden 112 does not fit") as info:
+        ct.collision_bwd(params, x, mult, g, config, 10.0)
+    assert "f32 kernel takes hidden <= 108" in str(info.value)
+    assert "bf16 kernel hidden <= 128" in str(info.value)
+    assert len(calls) == 1 and calls[0][8] == int(compute_dtype == "bfloat16")  # its bf16 flag
