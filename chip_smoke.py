@@ -14,10 +14,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      of the main path and their bf16 mode (onf_apply's casts); the
      multi-problem kernels in f32 and bf16, with P = 1, 2, 4, 8 problems per
      program giving identical outputs; the collision kernels' bf16 mode; two
-     launches of each field-gradient and collision-backward kernel giving
-     identical bits; then every kernel on the other field configurations at
-     small shapes, in f32 and bf16, and the collision backward at the widest
-     fields it takes;
+     launches of each kernel giving identical bits; then every kernel on the
+     other field configurations at small shapes, in f32 and bf16, and the
+     forward and collision-backward kernels at the widest fields they take;
   4. main path: the batched car-scene solve (run_planner_config, f32,
      B=256 x 1000 steps, seeded) through the port's entry points, after a
      one-step CUDA-vs-CPU agreement check on 4 problems (then 100 more steps
@@ -94,6 +93,12 @@ CARD_PEAKS = {"H100 PCIe": (51.2e12, 756e12, 2.0e12), "H100 NVL": (60.0e12, 835e
 # backward's kernels take, 220 features at hidden 108 (f32, the shared-memory
 # limit; bf16 too) and 256 features at hidden 128 (bf16, net_args' limit)
 COLLISION_BWD_WIDEST = ((108, 10, ("float32", "bfloat16")), (128, 28, ("bfloat16",)))
+# the same for the forward kernels (ONF logits and collision forward): 220
+# features at hidden 118 (the first version's limit, both modes) and 120
+# (f32, the shared-memory limit), 226 at 117 (f32, fits only without the
+# tiles' bank padding), 256 at 128 (bf16, net_args' limit)
+FORWARD_WIDEST = ((118, 10, ("float32", "bfloat16")), (120, 10, ("float32",)),
+                  (117, 13, ("float32",)), (128, 28, ("bfloat16",)))
 
 MAIN_PATH = ("onf_forward", "field_grad", "collision_fwd", "collision_bwd")
 BATCH_PATH = ("onf_multi", "field_grad_multi", "collision_fwd_bf16", "collision_bwd_bf16")
@@ -112,17 +117,20 @@ REPLACES = {
     "onf_forward_bf16": "nfopp_tpu/experimental/pallas/onf_fused.py:73",
     "field_grad_bf16": "nfopp_tpu/experimental/pallas/field_grad.py:35",
 }
+# the file that holds each kernel's code (the ONF logits and field-gradient
+# kernels are templates in headers, instantiated by onf_forward.cu /
+# onf_multi.cu and field_grad.cu / field_grad_multi.cu)
 SOURCES = {
-    "onf_forward": "nfopp_tpu_torch/kernels/csrc/onf_forward.cu",
-    "field_grad": "nfopp_tpu_torch/kernels/csrc/field_grad.cu",
+    "onf_forward": "nfopp_tpu_torch/kernels/csrc/forward.cuh",
+    "field_grad": "nfopp_tpu_torch/kernels/csrc/field_grad.cuh",
     "collision_fwd": "nfopp_tpu_torch/kernels/csrc/collision_terms.cu",
     "collision_bwd": "nfopp_tpu_torch/kernels/csrc/collision_bwd.cu",
-    "onf_multi": "nfopp_tpu_torch/kernels/csrc/onf_multi.cu",
-    "field_grad_multi": "nfopp_tpu_torch/kernels/csrc/field_grad_multi.cu",
+    "onf_multi": "nfopp_tpu_torch/kernels/csrc/forward.cuh",
+    "field_grad_multi": "nfopp_tpu_torch/kernels/csrc/field_grad.cuh",
     "collision_fwd_bf16": "nfopp_tpu_torch/kernels/csrc/collision_terms.cu",
     "collision_bwd_bf16": "nfopp_tpu_torch/kernels/csrc/collision_bwd.cu",
-    "onf_forward_bf16": "nfopp_tpu_torch/kernels/csrc/onf_forward.cu",
-    "field_grad_bf16": "nfopp_tpu_torch/kernels/csrc/field_grad.cu",
+    "onf_forward_bf16": "nfopp_tpu_torch/kernels/csrc/forward.cuh",
+    "field_grad_bf16": "nfopp_tpu_torch/kernels/csrc/field_grad.cuh",
 }
 
 
@@ -141,15 +149,17 @@ def sass_listing(build) -> str:
 
 
 # the kernels that run their products on the tensor cores, and how many
-# instantiations each has: the field-gradient kernel's two bf16 modes and the
-# collision backward's bf16 mode
-TENSOR_CORE_KERNELS = {"field_grad_tc_kernel": 2, "collision_bwd_tc_kernel": 1}
+# instantiations each has: the bf16 modes of the field-gradient kernel
+# (BF16_MULTI, BF16_APPLY), of the ONF logits kernel (the same two) and of
+# the collision forward and backward (BF16_APPLY)
+TENSOR_CORE_KERNELS = {"field_grad_tc_kernel": 2, "collision_bwd_tc_kernel": 1,
+                       "onf_logits_tc_kernel": 2, "collision_fwd_tc_kernel": 1}
 
 
 def tensor_core_kernels(sass: str) -> dict:
-    """HMMA (tensor-core) instructions in each field-gradient and collision
-    kernel of a `cuobjdump -sass` listing; raises unless every instantiation
-    of each TENSOR_CORE_KERNELS entry has some."""
+    """HMMA (tensor-core) instructions in each field kernel of a `cuobjdump
+    -sass` listing; raises unless every instantiation of each
+    TENSOR_CORE_KERNELS entry has some and the f32 kernels have none."""
     counts, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
@@ -161,7 +171,11 @@ def tensor_core_kernels(sass: str) -> dict:
         tc = {k: v for k, v in counts.items() if kernel in k}
         if len(tc) != instances or not all(tc.values()):
             raise AssertionError(f"{kernel}: instantiations without tensor-core instructions: {tc}")
-    return {k: v for k, v in counts.items() if "field_grad" in k or "collision" in k}
+    f32 = {k: v for k, v in counts.items() if "_f32_kernel" in k and v}
+    if f32:
+        raise AssertionError(f"f32 kernels with tensor-core instructions: {f32}")
+    return {k: v for k, v in counts.items()
+            if any(kind in k for kind in ("field_grad", "collision", "onf_logits"))}
 
 
 def card_peaks(name: str) -> tuple[str, float, float, float]:
@@ -515,6 +529,7 @@ def check_collision(inp: "KernelInputs", onf) -> dict:
     suffix = "_bf16" if bf16 else ""
     out = collision_fwd(params, x3, mult, onf, beta)
     ref = torch.stack(kernels.collision_terms_plain(params, x3, mult, onf, beta), dim=1)
+    same_bits("collision_fwd" + suffix, lambda: collision_fwd(params, x3, mult, onf, beta))
     results = {"collision_fwd" + suffix: {
         "max_abs_err": hold("collision_fwd" + suffix, [out], [ref], [(1e-5, 1e-5)], bf16=bf16),
         "ms": time_ms(lambda: collision_fwd(params, x3, mult, onf, beta)),
@@ -567,6 +582,7 @@ def check_kernels(device, peaks, seed: int, batch: int) -> dict:
         # kernel 1: forward (tolerance of tests/test_pallas.py:32)
         got = kernels.onf_forward(params, x1, onf)
         want = kernels.onf_forward_plain(params, x1, onf)
+        same_bits("onf_forward" + suffix, lambda: kernels.onf_forward(params, x1, onf))
         results["onf_forward" + suffix] = {
             "max_abs_err": hold("onf_forward" + suffix, [got], [want], [(1e-4, 2e-4)], bf16=bf16),
             "ms": time_ms(lambda: kernels.onf_forward(params, x1, onf)),
@@ -622,6 +638,7 @@ def check_batch_kernels(device, peaks, seed: int, batch: int) -> tuple[dict, dic
             same = [torch.equal(a, b) for a, b in zip([z, loss, *tree_leaves(grads)], first)]
             if not all(same):
                 raise AssertionError(f"multi-problem kernels ({tag}): P={p} differs from P=1")
+        same_bits(f"onf_multi {tag}", lambda: kernels.onf_multi(params, x1, onf, p_last))
         same_bits(f"field_grad_multi {tag}",
                   lambda: kernels.field_grad_multi(params, x2, truth, onf, p_last))
         out = results if bf16 else f32
@@ -653,17 +670,38 @@ def check_batch_kernels(device, peaks, seed: int, batch: int) -> tuple[dict, dic
     return results, f32
 
 
+def check_forward(name, params, x, mult, onf) -> float:
+    """The ONF logits kernel (through onf_forward and onf_multi) and the
+    collision forward against their plain versions, with the tolerances of
+    phase 3; returns the largest difference."""
+    import torch
+
+    from nfopp_tpu_torch import kernels
+    from nfopp_tpu_torch.kernels.collision_terms import collision_fwd
+
+    bf16 = onf.compute_dtype == "bfloat16"
+    sums = torch.stack(kernels.collision_terms_plain(params, x, mult, onf, 10.0), dim=1)
+    return max(
+        hold(f"onf_forward {name}", [kernels.onf_forward(params, x, onf)],
+             [kernels.onf_forward_plain(params, x, onf)], [(1e-4, 2e-4)], bf16=bf16),
+        hold(f"onf_multi {name}", [kernels.onf_multi(params, x, onf, x.shape[0])],
+             [kernels.onf_multi_plain(params, x, onf)], [(1e-4, 2e-4)], bf16=bf16),
+        hold(f"collision_fwd {name}", [collision_fwd(params, x, mult, onf, 10.0)], [sums],
+             [(1e-5, 1e-5)], bf16=bf16))
+
+
 def check_configs(device, seed: int) -> dict:
     """Every kernel on the other field configurations (those of the JAX kernel
     tests, tests/test_field_grad_fused.py:13-20, plus bias=False) on small
     shapes that end in partial tiles, against its plain version with the
-    tolerances of phase 3, in f32 and bf16; the collision backward at the
-    widest fields its kernels take (COLLISION_BWD_WIDEST); one step past
-    the widest, each launch refuses with a clear error."""
+    tolerances of phase 3, in f32 and bf16; the forward kernels and the
+    collision backward at the widest fields their kernels take
+    (FORWARD_WIDEST, COLLISION_BWD_WIDEST); one step past the widest, each
+    launch refuses with a clear error."""
     import torch
 
     from nfopp_tpu_torch import kernels
-    from nfopp_tpu_torch.kernels.collision_terms import collision_bwd
+    from nfopp_tpu_torch.kernels.collision_terms import collision_bwd, collision_fwd
     from nfopp_tpu_torch.models import ONFConfig, init_onf_params
     from nfopp_tpu_torch.utils.tree import tree_leaves
 
@@ -724,6 +762,16 @@ def check_configs(device, seed: int) -> dict:
                                kinks=(params, x, onf, collision_f64(mult, cot, onf, 10.0, casts)),
                                bf16=bf16))
             errors[f"config{i}_m{m}"] = err
+    # the forward kernels at the widest fields they take
+    for hidden, harmonics, dtypes in FORWARD_WIDEST:
+        base = ONFConfig(mean=0.0, sigma=1.0, hidden=hidden, angle_harmonics=harmonics)
+        params = init_onf_params(g, base, 3, device)
+        x = torch.randn((3, 37, 3), generator=g, device=device) * 2
+        mult = torch.rand((3, 37), generator=g, device=device)
+        for dtype in dtypes:
+            name = f"{dtype} {base.feature_dim} features, hidden {hidden}"
+            errors[f"forward_{dtype}_{base.feature_dim}x{hidden}"] = check_forward(
+                name, params, x, mult, base._replace(compute_dtype=dtype))
     # the collision backward's kernels at the widest fields they take
     cot3 = cot.to(device).expand(3, 2).contiguous()
     for hidden, harmonics, dtypes in COLLISION_BWD_WIDEST:
@@ -742,11 +790,14 @@ def check_configs(device, seed: int) -> dict:
                 [(5e-4, 1e-5), (5e-4, 1e-6)], kinks=(params, x, onf, recompute), bf16=bf16)
     # one step past those widths a launch refuses with a clear error: the
     # field-gradient kernels and the f32 collision backward at hidden 112
-    # (220 features), the bf16 collision backward at hidden 136, which
-    # net_args refuses for every kernel
+    # (220 features), the f32 forward kernels at hidden 121, the bf16
+    # kernels at hidden 136, which net_args refuses for every kernel
     wide = ONFConfig(mean=0.0, sigma=1.0, use_cos=True, angle_encoding=True, hidden=112)
+    wide_fwd = wide._replace(hidden=121)
     wider = ONFConfig(mean=0.0, sigma=1.0, hidden=136, compute_dtype="bfloat16")
     params = init_onf_params(g, wide, 3, device)
+    params_fwd = init_onf_params(g, wide_fwd, 3, device)
+    params_wider = init_onf_params(g, wider, 3, device)
     x = torch.randn((3, 37, 3), generator=g, device=device) * 2
     truth = torch.rand((3, 37), generator=g, device=device) > 0.5
     mult = torch.rand((3, 37), generator=g, device=device)
@@ -757,7 +808,12 @@ def check_configs(device, seed: int) -> dict:
             kernels.field_grad_multi, params, x, truth, onf, 3)
     calls["collision_bwd float32"] = partial(collision_bwd, params, x, mult, cot3, wide, 10.0)
     calls["collision_bwd bfloat16, hidden 136"] = partial(
-        collision_bwd, init_onf_params(g, wider, 3, device), x, mult, cot3, wider, 10.0)
+        collision_bwd, params_wider, x, mult, cot3, wider, 10.0)
+    for p, onf in ((params_fwd, wide_fwd), (params_wider, wider)):
+        label = f"{onf.compute_dtype}, hidden {onf.hidden}"
+        calls[f"onf_forward {label}"] = partial(kernels.onf_forward, p, x, onf)
+        calls[f"onf_multi {label}"] = partial(kernels.onf_multi, p, x, onf, 3)
+        calls[f"collision_fwd {label}"] = partial(collision_fwd, p, x, mult, onf, 10.0)
     for label, call in calls.items():
         try:
             call()

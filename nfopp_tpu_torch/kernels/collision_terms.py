@@ -21,7 +21,8 @@ from ..models.onf import ONFConfig, onf_apply
 from ..ops.losses import softplus_beta
 from . import build
 from .common import (
-    LAUNCHES, TOO_LARGE, check_points, check_tensor, is_bf16, net_args, stream, use_plain,
+    FORWARD_LIMITS, LAUNCHES, check_fits, check_points, check_tensor, is_bf16, net_args, stream,
+    use_plain,
 )
 
 __all__ = ["collision_terms", "collision_terms_plain", "collision_fwd", "collision_bwd"]
@@ -48,12 +49,11 @@ def collision_fwd(params, positions, multipliers, config: ONFConfig, beta: float
     bf16 = is_bf16(config)
     name = "collision_fwd_bf16" if bf16 else "collision_fwd"
     out = torch.empty((batch, 2), dtype=torch.float32, device=positions.device)
-    build.check(
-        build.load_library().nf_collision_fwd(
-            ctypes.byref(net), positions.data_ptr(), multipliers.data_ptr(), batch, m, dim,
-            float(beta), int(bf16), out.data_ptr(), stream()),
-        name,
-    )
+    code = build.load_library().nf_collision_fwd(
+        ctypes.byref(net), positions.data_ptr(), multipliers.data_ptr(), batch, m, dim,
+        float(beta), int(bf16), out.data_ptr(), stream())
+    check_fits(code, name, config, FORWARD_LIMITS)
+    build.check(code, name)
     LAUNCHES[name] += 1
     return out
 
@@ -72,12 +72,8 @@ def collision_bwd(params, positions, multipliers, g, config: ONFConfig, beta: fl
         ctypes.byref(net), positions.data_ptr(), multipliers.data_ptr(), g.data_ptr(),
         batch, m, dim, float(beta), int(bf16), d_positions.data_ptr(),
         d_multipliers.data_ptr(), stream())
-    if code == TOO_LARGE:
-        raise ValueError(
-            f"{name}: a field of {config.feature_dim} features and hidden {config.hidden} does "
-            "not fit one CTA of this kernel (its shared memory); at 220 features the f32 kernel "
-            "takes hidden <= 108, the bf16 kernel hidden <= 128 at up to 256 features"
-        )
+    check_fits(code, name, config, "at 220 features the f32 kernel takes hidden <= 108, the bf16 "
+               "kernel hidden <= 128 at up to 256 features")
     build.check(code, name)
     LAUNCHES[name] += 1
     return d_positions, d_multipliers

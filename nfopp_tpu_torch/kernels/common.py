@@ -16,6 +16,7 @@ from ..models.onf import ONFConfig
 __all__ = [
     "LAUNCHES", "reset_launches", "NetArgs", "net_args", "use_plain", "is_bf16",
     "check_problems_per_program", "check_points", "check_tensor", "stream", "TOO_LARGE",
+    "check_fits", "FORWARD_LIMITS",
 ]
 
 # launches of each kernel, counted by its wrapper where it launches it; the
@@ -27,14 +28,31 @@ LAUNCHES = {
     "onf_forward_bf16": 0, "field_grad_bf16": 0, "collision_fwd_bf16": 0, "collision_bwd_bf16": 0,
 }
 
-# what one CTA holds (csrc/onf_common.cuh): one hidden column per thread
-# slot, at most two feature columns per thread slot
+# the widest fields any kernel is built for; the bf16 forward and collision
+# backward kernels take every field up to these, and a launch whose kernel
+# cannot hold a narrower field on chip returns TOO_LARGE
 MAX_HIDDEN = 128
 MAX_FEATURES = 256
 
 # what a launch returns for a field too large for its kernel
 # (csrc/field_grad.cuh); not a CUDA error code
 TOO_LARGE = -1
+
+# the fields the forward kernels (the ONF logits and collision forward
+# kernels, csrc/forward.cuh) take
+FORWARD_LIMITS = ("at 220 features the f32 kernel takes hidden <= 120, the bf16 kernel every field "
+                  "of hidden <= 128 at up to 256 features")
+
+
+def check_fits(code: int, name: str, config: ONFConfig, limits: str) -> None:
+    """Raise a ValueError naming the widths if a launch returned TOO_LARGE:
+    the field does not fit one CTA of the kernel's shared memory (`limits`:
+    what each mode takes)."""
+    if code == TOO_LARGE:
+        raise ValueError(
+            f"{name}: a field of {config.feature_dim} features and hidden {config.hidden} does "
+            f"not fit one CTA of this kernel (its shared memory); {limits}"
+        )
 
 
 def reset_launches() -> None:

@@ -97,7 +97,7 @@ __device__ __forceinline__ float w3_operand(float g) {
   return P == BF16_MULTI ? rnd<P>(g) : g;
 }
 
-// --------------------------------- shared with collision_bwd.cu (kernel 3b) --
+// ------------------- shared with collision_bwd.cu (kernel 3b) and forward.cuh --
 
 typedef __nv_bfloat16 bf16;
 
@@ -130,21 +130,24 @@ __device__ inline void load_poses(const float* x, int M, int dim, int row0, cons
 }
 
 // Problem b's f32 weights into shared memory (a CTA of NT threads): W1, W2
-// [k][column] at row stride ldw, out.w, the encoding weights and biases.
-template <int NT>
+// [k][column] at row stride ldw (unless MATRICES is false), out.w, the
+// encoding weights and biases.
+template <int NT, bool MATRICES = true>
 __device__ inline void load_f32_weights(const NetArgs& n, int b, float* w1, float* w2, int ldw,
                                         float* w3, float* ew, float* eb, float* b1, float* b2,
                                         float* ab) {
   const int tid = threadIdx.x, F = n.F, A = n.A, HID = n.HID, FEAT = F + A;
-  const float* src = n.w1 + (size_t)b * FEAT * HID;
-  for (int i = tid; i < FEAT * HID; i += NT) {
-    const int k = i / HID, c = i - k * HID;
-    w1[k * ldw + c] = src[i];
-  }
-  src = n.w2 + (size_t)b * HID * HID;
-  for (int i = tid; i < HID * HID; i += NT) {
-    const int k = i / HID, c = i - k * HID;
-    w2[k * ldw + c] = src[i];
+  if constexpr (MATRICES) {
+    const float* src = n.w1 + (size_t)b * FEAT * HID;
+    for (int i = tid; i < FEAT * HID; i += NT) {
+      const int k = i / HID, c = i - k * HID;
+      w1[k * ldw + c] = src[i];
+    }
+    src = n.w2 + (size_t)b * HID * HID;
+    for (int i = tid; i < HID * HID; i += NT) {
+      const int k = i / HID, c = i - k * HID;
+      w2[k * ldw + c] = src[i];
+    }
   }
   for (int i = tid; i < HID + FEAT; i += NT) w3[i] = n.w3[(size_t)b * (HID + FEAT) + i];
   for (int i = tid; i < 2 * F; i += NT) ew[i] = n.ew[(size_t)b * 2 * F + i];
@@ -867,10 +870,11 @@ __device__ inline void load_tc_weights(const NetArgs& n, int b, bf16* w1, bf16* 
   for (int i = tid; i < A; i += NT) ab[i] = n.ab[(size_t)b * A + i];
 }
 
-// Features [row][k] of ROWS rows, rounded (product operands), and in f32 the
-// slope of each (d feature / d its pre-activation) from the same sincosf;
-// warp w of WARPS takes rows w + WARPS q, its lanes the features.
-template <int WARPS, int ROWS>
+// Features [row][k] of ROWS rows, rounded (product operands), and, under
+// SLOPE, in f32 the slope of each (d feature / d its pre-activation) from the
+// same sincosf; warp w of WARPS takes rows w + WARPS q, its lanes the
+// features.
+template <int WARPS, int ROWS, bool SLOPE = true>
 __device__ inline void tc_features(const NetArgs& n, const float* ew, const float* eb,
                                    const float* ab, const float* xn, const float* yn,
                                    const float* th, bf16* feat, float* slope, int ldf) {
@@ -882,7 +886,7 @@ __device__ inline void tc_features(const NetArgs& n, const float* ew, const floa
       float freq, sv, cv;
       sincosf(feature_arg(n, ew, eb, ab, xr, yr, tr, k, &is_cos, &freq), &sv, &cv);
       feat[r * ldf + k] = __float2bfloat16_rn(is_cos ? cv : sv);
-      slope[r * ldf + k] = is_cos ? -sv : cv;
+      if constexpr (SLOPE) slope[r * ldf + k] = is_cos ? -sv : cv;
     }
   }
 }

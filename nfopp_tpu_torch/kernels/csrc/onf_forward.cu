@@ -6,20 +6,19 @@
 // Bound on this card: f32 FMAs. About 32.7k multiply-adds per point against
 // 33,141 weights per problem read once, so at B=256 x M=199 the work is
 // ~3.3 GFLOP against ~34 MB of weights: ~50 us at the 67 TFLOP/s f32 rate and
-// ~10 us at 3.35 TB/s (H100 SXM data sheet rates).
-// Design: one CTA per problem keeps the whole field in shared memory (the
-// TPU kernel's 128-lane padding and weight splitting are a TPU layout and are
-// not carried over), walks the points in tiles of 32 rows, and writes only
-// the logits: no activation touches device memory. The products are plain f32
-// FMA loops (onf_common.cuh::onf_logits_kernel<F32>); tensor cores would
-// change the f32 numerics.
+// ~10 us at 3.35 TB/s (H100 SXM data sheet rates). In bf16 the work is ~3 us
+// at 989 TFLOP/s against ~10 us of weights: bound by bytes.
+// Design (forward.cuh): one CTA per problem keeps the whole field on chip
+// (the TPU kernel's 128-lane padding and weight splitting are a TPU layout
+// and are not carried over), walks the points in row tiles, and writes only
+// the logits. F32 (onf_logits_f32_kernel) runs register-blocked f32 FMA
+// tiles; tensor cores would change the f32 numerics.
 //
 // Under compute_dtype="bfloat16" (bf16 != 0) the production solver scores
-// through models/onf.py::onf_apply's casts: onf_logits_kernel<BF16_APPLY>,
-// the forward of the collision kernels' bf16 mode (xy, the encoding weights
-// and every product operand rounded to bf16, f32 accumulation). In bf16 the
-// work is ~3 us at 989 TFLOP/s against ~10 us of weights: bound by bytes.
-#include "onf_common.cuh"
+// through models/onf.py::onf_apply's casts: onf_logits_tc_kernel<BF16_APPLY>
+// (xy, the encoding weights and every product operand rounded to bf16, f32
+// accumulation), the products on the tensor cores.
+#include "forward.cuh"
 
 using namespace nf;
 

@@ -16,13 +16,11 @@
 //
 // Bound on this card (H100 SXM data sheet rates): at B=256 x M=199, ~3.3
 // GFLOP, ~3 us at 989 TFLOP/s bf16 dense, against ~34 MB of f32 weights read
-// once, ~10 us at 3.35 TB/s: bound by bytes. This first version runs the
-// bf16 products as exact f32 FMAs on the CUDA cores (the f32 kernel's loops
-// over rounded operands), so it runs at kernel 1's speed; tensor cores are
-// later work.
+// once, ~10 us at 3.35 TB/s: bound by bytes. Design: forward.cuh's
+// onf_logits_tc_kernel<BF16_MULTI>, both products on the tensor cores.
 // In f32 the function is kernel 1's, and so is the launch: each kernel
 // instantiation lives in one translation unit only.
-#include "onf_common.cuh"
+#include "forward.cuh"
 
 using namespace nf;
 

@@ -16,7 +16,9 @@ import torch
 
 from ..models.onf import ONFConfig, onf_apply
 from . import build
-from .common import LAUNCHES, check_points, is_bf16, net_args, stream, use_plain
+from .common import (
+    FORWARD_LIMITS, LAUNCHES, check_fits, check_points, is_bf16, net_args, stream, use_plain,
+)
 
 __all__ = ["onf_forward", "onf_forward_plain"]
 
@@ -35,10 +37,9 @@ def onf_forward(params: dict, x: torch.Tensor, config: ONFConfig) -> torch.Tenso
     bf16 = is_bf16(config)
     name = "onf_forward_bf16" if bf16 else "onf_forward"
     out = torch.empty((batch, m, 1), dtype=torch.float32, device=x.device)
-    build.check(
-        build.load_library().nf_onf_forward(
-            ctypes.byref(net), x.data_ptr(), batch, m, dim, int(bf16), out.data_ptr(), stream()),
-        name,
-    )
+    code = build.load_library().nf_onf_forward(
+        ctypes.byref(net), x.data_ptr(), batch, m, dim, int(bf16), out.data_ptr(), stream())
+    check_fits(code, name, config, FORWARD_LIMITS)
+    build.check(code, name)
     LAUNCHES[name] += 1
     return out

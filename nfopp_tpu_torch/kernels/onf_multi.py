@@ -22,7 +22,9 @@ import torch
 from ..models.onf import ONFConfig
 from . import build
 from .common import (
+    FORWARD_LIMITS,
     LAUNCHES,
+    check_fits,
     check_points,
     check_problems_per_program,
     is_bf16,
@@ -105,11 +107,10 @@ def onf_multi(
     batch, m, dim = check_points(x, config, "onf_multi")
     net = net_args(params, config, batch, x.device)
     out = torch.empty((batch, m, 1), dtype=torch.float32, device=x.device)
-    build.check(
-        build.load_library().nf_onf_multi(
-            ctypes.byref(net), x.data_ptr(), batch, m, dim, int(is_bf16(config)),
-            out.data_ptr(), stream()),
-        "onf_multi",
-    )
+    code = build.load_library().nf_onf_multi(
+        ctypes.byref(net), x.data_ptr(), batch, m, dim, int(is_bf16(config)), out.data_ptr(),
+        stream())
+    check_fits(code, "onf_multi", config, FORWARD_LIMITS)
+    build.check(code, "onf_multi")
     LAUNCHES["onf_multi"] += 1
     return out

@@ -245,10 +245,15 @@ def test_hold_bf16_accepts_a_unit_flipped_within_a_tie_reach():
 FIELD_TC = ("_Z20field_grad_tc_kernelILi1EEvPKfS1_iiN2nf7NetArgsEPfNS2_5GradsE",
             "_Z20field_grad_tc_kernelILi2EEvPKfS1_iiN2nf7NetArgsEPfNS2_5GradsE")
 COLLISION_TC = "_ZN12_GLOBAL__N_123collision_bwd_tc_kernelILi2EEEvPKfS2_S2_iiN2nf7NetArgsEfPfS5_"
+ONF_TC = ("_ZN2nf20onf_logits_tc_kernelILi1EEEvPKfiiNS_7NetArgsEPf",
+          "_ZN2nf20onf_logits_tc_kernelILi2EEEvPKfiiNS_7NetArgsEPf")
+COLLISION_FWD_TC = "_ZN12_GLOBAL__N_123collision_fwd_tc_kernelILi2EEEvPKfS2_iiN2nf7NetArgsEfPf"
 OTHERS = ("_Z21field_grad_f32_kernelILi0EEvPKfS1_iiN2nf7NetArgsEPfNS2_5GradsE",
           "_ZN12_GLOBAL__N_124collision_bwd_f32_kernelILi0EEEvPKfS2_S2_iiN2nf7NetArgsEfPfS5_",
-          "_Z20collision_fwd_kernelILi0EEvPKfS1_iiN2nf7NetArgsEfPf",
-          "_ZN2nf17onf_logits_kernelILi2EEEvPKfiiNS_7NetArgsEPf")
+          "_ZN12_GLOBAL__N_124collision_fwd_f32_kernelILi0EEEvPKfS2_iiN2nf7NetArgsEfPf",
+          "_ZN2nf21onf_logits_f32_kernelILi0EEEvPKfiiNS_7NetArgsEPf")
+HMMA = {FIELD_TC[0]: 128, FIELD_TC[1]: 128, COLLISION_TC: 56, ONF_TC[0]: 48, ONF_TC[1]: 48,
+        COLLISION_FWD_TC: 48, **{name: 0 for name in OTHERS}}
 
 
 def sass_listing(hmma: dict) -> str:
@@ -262,21 +267,31 @@ def sass_listing(hmma: dict) -> str:
 
 
 def test_tensor_core_kernels_counts_hmma_of_the_field_and_collision_kernels():
-    hmma = {FIELD_TC[0]: 128, FIELD_TC[1]: 128, COLLISION_TC: 56, **{name: 0 for name in OTHERS}}
-    counts = cs.tensor_core_kernels(sass_listing(hmma))
-    assert counts == {name: n for name, n in hmma.items() if "onf_logits" not in name}
+    assert cs.tensor_core_kernels(sass_listing(HMMA)) == HMMA
 
 
-@pytest.mark.parametrize("missing", [COLLISION_TC, FIELD_TC[1]])
+@pytest.mark.parametrize("missing", [COLLISION_TC, FIELD_TC[1], ONF_TC[0], ONF_TC[1],
+                                     COLLISION_FWD_TC])
 def test_tensor_core_kernels_raises_without_hmma_in_a_tensor_core_kernel(missing):
     """A bf16 kernel compiled without tensor-core instructions (or missing
-    from the library) fails the check: the bf16 collision backward as the
-    field-gradient kernels."""
-    hmma = {FIELD_TC[0]: 128, FIELD_TC[1]: 128, COLLISION_TC: 56, **{name: 0 for name in OTHERS}}
+    from the library) fails the check: the bf16 collision backward and
+    forward and the ONF logits kernel's two bf16 modes as the field-gradient
+    kernels."""
+    hmma = dict(HMMA)
     hmma[missing] = 0
-    kernel = "collision_bwd_tc_kernel" if missing == COLLISION_TC else "field_grad_tc_kernel"
+    kernel = next(k for k in cs.TENSOR_CORE_KERNELS if k in missing)
     with pytest.raises(AssertionError, match=f"{kernel}: instantiations without tensor-core"):
         cs.tensor_core_kernels(sass_listing(hmma))
     del hmma[missing]
     with pytest.raises(AssertionError, match=kernel):
+        cs.tensor_core_kernels(sass_listing(hmma))
+
+
+@pytest.mark.parametrize("f32_kernel", OTHERS)
+def test_tensor_core_kernels_raises_on_hmma_in_an_f32_kernel(f32_kernel):
+    """The f32 kernels keep the f32 numerics: tensor-core instructions in one
+    of them fail the check."""
+    hmma = dict(HMMA)
+    hmma[f32_kernel] = 8
+    with pytest.raises(AssertionError, match="f32 kernels with tensor-core instructions"):
         cs.tensor_core_kernels(sass_listing(hmma))

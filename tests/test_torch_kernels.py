@@ -3,6 +3,7 @@ TPU kernels run in Pallas interpret mode. The CUDA kernels themselves are
 held against the same plain versions on the card by chip_smoke.py."""
 import importlib
 import types
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -160,3 +161,42 @@ def test_collision_bwd_refuses_a_field_too_wide_for_its_kernel(monkeypatch, comp
     assert "f32 kernel takes hidden <= 108" in str(info.value)
     assert "bf16 kernel hidden <= 128" in str(info.value)
     assert len(calls) == 1 and calls[0][8] == int(compute_dtype == "bfloat16")  # its bf16 flag
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name,entry,flag_at", [
+    ("onf_forward", "nf_onf_forward", 5),
+    ("onf_multi", "nf_onf_multi", 5),
+    ("collision_fwd", "nf_collision_fwd", 7),
+])
+def test_forward_kernels_refuse_a_field_too_wide(monkeypatch, name, entry, flag_at, compute_dtype):
+    """A forward kernel (the ONF logits kernel behind onf_forward and
+    onf_multi, the collision forward) that cannot hold a field in one CTA's
+    shared memory returns TOO_LARGE; the wrapper raises a ValueError naming
+    the widths and each mode's limit, and counts no launch (the library is
+    stood in for, and the wrapper made to take CPU tensors for the kernel's,
+    so this runs without a card)."""
+    from nfopp_tpu_torch.kernels.common import TOO_LARGE, NetArgs
+    from nfopp_tpu_torch.models import init_onf_params
+
+    module = importlib.import_module(
+        "nfopp_tpu_torch.kernels." + ("collision_terms" if name == "collision_fwd" else name))
+    config = ONFConfig(hidden=121, compute_dtype=compute_dtype)
+    params = init_onf_params(torch.Generator().manual_seed(0), config, 2, torch.device("cpu"))
+    x, mult = torch.zeros((2, 5, 3)), torch.zeros((2, 5))
+    calls = []
+    library = types.SimpleNamespace(**{entry: lambda *args: calls.append(args) or TOO_LARGE})
+    monkeypatch.setattr(module, "net_args", lambda *args: NetArgs())
+    monkeypatch.setattr(module, "stream", lambda: None)
+    monkeypatch.setattr(module.build, "load_library", lambda: library)
+    if name == "collision_fwd":
+        call = partial(module.collision_fwd, params, x, mult, config, 10.0)
+    else:
+        monkeypatch.setattr(module, "use_plain", lambda *args: False)
+        call = partial(getattr(module, name), params, x, config,
+                       *(2,) if name == "onf_multi" else ())
+    with pytest.raises(ValueError, match="220 features and hidden 121 does not fit") as info:
+        call()
+    assert "f32 kernel takes hidden <= 120" in str(info.value)
+    assert "bf16 kernel every field of hidden <= 128" in str(info.value)
+    assert len(calls) == 1 and calls[0][flag_at] == int(compute_dtype == "bfloat16")
