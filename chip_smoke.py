@@ -32,7 +32,28 @@ Phases, each of which raises on failure (the script then exits non-zero):
      precision), B=256 x 1000 steps, after a one-step CUDA-vs-CPU agreement
      check on 4 problems; each of its four kernels (the bf16 mode of
      onf_forward, field_grad and the collision kernels) must launch once per
-     step, and the feasible fraction must reach 0.98.
+     step, and the feasible fraction must reach 0.98;
+  7. tracked path: run_with_tracking in bf16 with bench.py's anytime settings
+     (ANYTIME), B=256; each bf16 kernel must launch once per step actually
+     run (chunks x 50), and the feasible fraction must reach 0.98;
+  8. grouped path: init_state(group_size=8) and run_grouped_with_tracking in
+     f32, B=256 (32 groups of 8 restarts), 1000 steps; each f32 kernel once
+     per step, the replicas of every group bit-identical at the end, and the
+     feasible fraction at least 0.98;
+  9. holonomic path and planner API: HolonomicSolver.run with
+     make_onf_planner's config on the two-walls scene, B=256 x 1000 steps,
+     each f32 kernel once per step on 2-wide points (the feasible fraction is
+     printed, not held); the constrained planner (DEFAULT_PARAMETERS: no angle
+     features on SE(2) poses) and the holonomic planner, one problem each,
+     through init, 1000 steps, moved goal and start, new bounds and 50 more
+     steps, with their endpoints pinned; and a checkpoint of phase 7's tracked
+     solve, restored and resumed bit for bit.
+After each solve of phases 7-9 (the tracked and grouped paths, the holonomic
+path and both planners), every kernel of that path is held against its plain
+version on the inputs the path's next step gives it, at the path's own shapes
+(`hold_path_kernels`). Phase 3's check of the other field configurations
+includes both kinds of field these paths add, at small shapes: no angle
+features on SE(2) poses, and on points.
 The last two lines are the card (nvidia-smi) and {"ok": true, "device": ...};
 before them, one JSON line lists every kernel with its launches, error and
 times, and earlier lines hold each path's numbers and the f32 checks of the
@@ -50,6 +71,10 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 BATCH, STEPS = 256, 1000  # the bench workload: bench.py's batch and step budget
+# bench.py --anytime's run_with_tracking settings (bench.py:449-464)
+ANYTIME = {"max_iterations": 1000, "min_iterations": 200, "check_freq": 50,
+           "samples_per_segment": 5, "stop_on_plateau": True}
+GROUP_SIZE = 8  # restarts of one query sharing a field (parallel/batch.py::solve_portfolio)
 DRIFT_STEPS = 100  # steps of the CUDA-vs-CPU drift readout after the checked step
 PROBLEMS_PER_PROGRAM = (1, 2, 4, 8)  # P of the multi-problem kernels; 8 on the batch path
 
@@ -692,8 +717,9 @@ def check_forward(name, params, x, mult, onf) -> float:
 
 def check_configs(device, seed: int) -> dict:
     """Every kernel on the other field configurations (those of the JAX kernel
-    tests, tests/test_field_grad_fused.py:13-20, plus bias=False) on small
-    shapes that end in partial tiles, against its plain version with the
+    tests, tests/test_field_grad_fused.py:13-20, plus bias=False, and the
+    planner API's two default fields) on small shapes that end in partial
+    tiles, against its plain version with the
     tolerances of phase 3, in f32 and bf16; the forward kernels and the
     collision backward at the widest fields their kernels take
     (FORWARD_WIDEST, COLLISION_BWD_WIDEST); one step past the widest, each
@@ -703,23 +729,28 @@ def check_configs(device, seed: int) -> dict:
     from nfopp_tpu_torch import kernels
     from nfopp_tpu_torch.kernels.collision_terms import collision_bwd, collision_fwd
     from nfopp_tpu_torch.models import ONFConfig, init_onf_params
+    from nfopp_tpu_torch.solver import DEFAULT_PARAMETERS, PlannerFactory, config_from_parameters
     from nfopp_tpu_torch.utils.tree import tree_leaves
 
-    configs = [
-        ONFConfig(mean=0.0, sigma=1.0, use_cos=True, angle_encoding=True),
-        ONFConfig(mean=1.0, sigma=3.0, use_cos=True, angle_encoding=False),
-        ONFConfig(mean=0.0, sigma=1.0, use_cos=False, angle_encoding=False),
-        ONFConfig(mean=0.5, sigma=2.0, use_cos=True, angle_encoding=True, bias=False),
+    configs = [  # (field, width of the query points)
+        (ONFConfig(mean=0.0, sigma=1.0, use_cos=True, angle_encoding=True), 3),
+        (ONFConfig(mean=1.0, sigma=3.0, use_cos=True, angle_encoding=False), 2),
+        (ONFConfig(mean=0.0, sigma=1.0, use_cos=False, angle_encoding=False), 2),
+        (ONFConfig(mean=0.5, sigma=2.0, use_cos=True, angle_encoding=True, bias=False), 3),
         # the widest hidden layer the bf16 field-gradient kernels take at 220
         # features (the f32 one, without room for its slope tile, 108)
-        ONFConfig(mean=0.0, sigma=1.0, use_cos=True, angle_encoding=True, hidden=104),
+        (ONFConfig(mean=0.0, sigma=1.0, use_cos=True, angle_encoding=True, hidden=104), 3),
+        # the planner API's default constrained field: no angle features on
+        # SE(2) poses, whose theta the kernels read and must not use
+        (config_from_parameters(DEFAULT_PARAMETERS).onf, 3),
+        # make_onf_planner's holonomic field, on points
+        (PlannerFactory.make_onf_planner(None, None, device=device).solver.config.onf, 2),
     ]
     g = torch.Generator(device=device).manual_seed(seed)
     cot = torch.tensor([3.0, 1.0])
     errors = {}
-    for i, base in enumerate(configs):
+    for i, (base, dim) in enumerate(configs):
         params = init_onf_params(g, base, 3, device)
-        dim = 3 if base.angle_encoding else 2
         for m in (5, 37):
             x = torch.randn((3, m, dim), generator=g, device=device) * 2
             truth = torch.rand((3, m), generator=g, device=device) > 0.5
@@ -994,21 +1025,16 @@ def solve(device, seed: int, batch: int, steps: int, path: tuple):
     seconds = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
 
-    for name, count in launches.items():
-        if count != (steps if name in path else 0):
-            raise AssertionError(f"kernel {name} launched {count} times in {steps} steps "
-                                 f"of the path of {path}")
+    check_launches(launches, path, steps, "the solve")
     path_xy = solver.full_trajectory(state)
-    n = solver.config.trajectory_length
-    if tuple(path_xy.shape) != (batch, n + 2, 3) or not torch.isfinite(path_xy).all():
-        raise AssertionError(f"bad trajectories: shape {tuple(path_xy.shape)}")
+    check_finite_paths(path_xy, (batch, solver.config.trajectory_length + 2, 3), "solve")
     if not torch.isfinite(aux.field_loss).all() or not torch.isfinite(aux.trajectory_loss).all():
         raise AssertionError("non-finite losses")
     collides, length = evaluate_path(rectangle_collision, oracle, path_xy)
     feasible = float((~collides).float().mean())
     metrics = {
         "batch": batch, "steps": steps, "seconds": seconds,
-        "us_per_step_per_problem": seconds / steps / batch * 1e6,
+        "us_per_step_per_problem": per_problem_us(seconds, steps, batch),
         "solves_per_s": batch / seconds,
         "feasible_fraction": feasible,
         "mean_length_feasible": float(length[~collides].mean()) if feasible > 0 else None,
@@ -1017,6 +1043,402 @@ def solve(device, seed: int, batch: int, steps: int, path: tuple):
     if feasible < 0.98:
         raise AssertionError(f"feasible fraction {feasible} below the 0.98 floor")
     return metrics, launches
+
+
+def check_launches(launches: dict, path: tuple, steps: int, what: str) -> None:
+    """Each kernel of `path` launched once per step (`steps` times), every
+    other kernel never."""
+    for name, count in launches.items():
+        if count != (steps if name in path else 0):
+            raise AssertionError(f"kernel {name} launched {count} times in {steps} steps of "
+                                 f"{what} (path {path})")
+
+
+def check_finite_paths(paths, shape: tuple, what: str) -> None:
+    import torch
+
+    if tuple(paths.shape) != shape or not torch.isfinite(paths).all():
+        raise AssertionError(f"{what}: bad paths, shape {tuple(paths.shape)} (want {shape})")
+
+
+def check_replicas(field_tree, group_size: int) -> None:
+    """Every leaf [B, ...] of a batch's field (parameters, Adam state)
+    bit-identical within each group of `group_size` consecutive problems, and
+    the first two groups' parameters distinct."""
+    import torch
+
+    from nfopp_tpu_torch.utils.tree import tree_leaves
+
+    leaves = tree_leaves(field_tree)
+    for leaf in leaves:
+        grouped = leaf.reshape((-1, group_size) + tuple(leaf.shape[1:]))
+        if not torch.equal(grouped, grouped[:, :1].expand_as(grouped)):
+            raise AssertionError(f"a leaf {tuple(leaf.shape)} differs within a group")
+    if all(torch.equal(leaf[0], leaf[group_size]) for leaf in leaves if leaf.is_floating_point()):
+        raise AssertionError("two groups hold the same field")
+
+
+def per_problem_us(seconds: float, steps: float, batch: int) -> float:
+    """µs per step per problem for `seconds` of `steps` steps of `batch`."""
+    return seconds / steps / batch * 1e6
+
+
+def hold_path_kernels(what: str, solver, state, oracle, seed: int) -> dict:
+    """Each kernel of `solver`'s path against its plain version on the inputs
+    one more step from `state` would give it (noise from a generator seeded
+    with `seed`): the field's parameters, the candidates it scores [B, K+N-1,
+    d] (onf_forward), its training points and their oracle labels [B, (N-1)
+    +K+R, d] (field_grad), and the trajectory's collision points with their
+    multipliers, beta and the trajectory loss's cotangents (collision terms,
+    forward and backward; zero multipliers and beta 1 on a holonomic path).
+    Phase 3's tolerances, its ReLU-kink recomputation and, in bf16,
+    onf_apply's casts and the tie allowance. Returns the largest difference
+    of each kernel."""
+    import torch
+
+    from nfopp_tpu_torch import kernels
+    from nfopp_tpu_torch.ops.sampling import GeneratorNoise, random_intermediate_positions
+    from nfopp_tpu_torch.solver.field import field_sample_post, field_sample_pre
+    from nfopp_tpu_torch.utils.tree import tree_leaves
+
+    cfg = solver.config
+    onf = cfg.onf
+    bf16 = onf.compute_dtype == "bfloat16"
+    casts = "apply" if bf16 else None
+    params = state.field_params
+    noise = GeneratorNoise(torch.Generator(device=solver.device).manual_seed(seed))
+    pre = field_sample_pre(cfg, noise, state.prev_trajectory, state.bounds)
+    candidates = torch.cat([state.buffer_points, pre.fine], dim=1)
+    ages = torch.cat([state.buffer_ages, torch.zeros_like(pre.fine[..., 0])], dim=1)
+    logits = kernels.onf_forward(params, candidates, onf)
+    errors = {"onf_forward": hold(f"{what} onf_forward", [logits],
+                                  [kernels.onf_forward_plain(params, candidates, onf)],
+                                  [(1e-4, 2e-4)], bf16=bf16)}
+
+    sample = field_sample_post(cfg, pre, logits[..., 0], candidates, ages)
+    points = sample.train_points
+    truth = solver.oracle_fn(oracle, points)
+    loss, grads = kernels.field_grad(params, points, truth, onf)
+    ref_loss, ref_grads = kernels.field_grad_plain(params, points, truth, onf)
+    errors["field_grad"] = max(
+        hold(f"{what} field_grad loss", [loss], [ref_loss], [(1e-5, 1e-6)], bf16=bf16),
+        hold(f"{what} field_grad gradients", tree_leaves(grads), tree_leaves(ref_grads),
+             [(2e-4, 2e-5)] * len(tree_leaves(grads)),
+             kinks=(params, points, onf, field_grad_f64(truth, onf, casts)), bf16=bf16))
+
+    batch, n = state.trajectory.shape[:2]
+    if hasattr(state, "collision_multipliers"):  # the constrained solver's loss
+        samples = cfg.collision_samples_per_segment
+        t = noise.uniform((batch, n - 1, samples), solver.device)
+        x, mult = solver.collision_inputs(state.trajectory, state.collision_multipliers, t)
+        beta, cot = cfg.collision_beta, (cfg.collision_weight / samples, 1.0 / samples)
+    else:  # the holonomic solver's: one point per segment, no multipliers
+        t = noise.uniform((batch, n - 1, 1), solver.device)
+        x = random_intermediate_positions(t, state.trajectory)
+        mult = torch.zeros(x.shape[:2], device=solver.device)
+        beta, cot = 1.0, (cfg.collision_weight, 0.0)
+    weights = torch.tensor(cot, device=solver.device)
+    sums = [torch.stack(fn(params, x, mult, onf, beta), dim=1)
+            for fn in (kernels.collision_terms, kernels.collision_terms_plain)]
+    errors["collision_fwd"] = hold(f"{what} collision_fwd", sums[:1], sums[1:],
+                                   [(1e-5, 1e-5)], bf16=bf16)
+    errors["collision_bwd"] = hold(
+        f"{what} collision_bwd",
+        collision_grads(kernels.collision_terms, params, x, mult, onf, beta, weights),
+        collision_grads(kernels.collision_terms_plain, params, x, mult, onf, beta, weights),
+        [(5e-4, 1e-5), (5e-4, 1e-6)],
+        kinks=(params, x, onf, collision_f64(mult, weights, onf, beta, casts)), bf16=bf16)
+    shapes = {"onf_forward": candidates.shape, "field_grad": points.shape,
+              "collision": x.shape}
+    log(f"{what}: kernels held on the path's own inputs {dict(shapes)}: {errors}")
+    return {"max_abs_err": errors,
+            "shapes": {name: list(shape) for name, shape in shapes.items()}}
+
+
+def tracked_solve(device, seed: int, batch: int):
+    """Phase 7: run_with_tracking in bf16 (bench.py's default precision) with
+    its anytime settings on the car scene. Every chunk steps the whole batch,
+    so each kernel launches once per step of the longest-running problem
+    (chunks x check_freq). Returns the metrics, the launches and what phase
+    9's checkpoint resumes (solver, final state, oracle, generator)."""
+    import torch
+
+    from nfopp_tpu_torch import kernels
+    from nfopp_tpu_torch.solver import ConstrainedSolver, run_planner_config, run_with_tracking
+    from nfopp_tpu_torch.tools.scene import car_world
+    from nfopp_tpu_torch.worlds import rectangle_collision
+
+    oracle, start, goal, bounds = car_world(batch, device)
+    solver = ConstrainedSolver(bf16_config(run_planner_config()), rectangle_collision,
+                               device=device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    state = solver.init_state(g, start, goal, bounds, oracle)
+    torch.cuda.synchronize()
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    result = run_with_tracking(solver, state, oracle, g, **ANYTIME)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+
+    iterations = result.iterations.float()
+    steps_run = int(result.iterations.max())
+    check_launches(launches, MAIN_PATH_BF16, steps_run, "the tracked path")
+    check_finite_paths(result.path, (batch, solver.config.trajectory_length + 2, 3),
+                       "tracked path")
+    feasible = float(result.feasible.float().mean())
+    mean_iterations = float(iterations.mean())
+    held = hold_path_kernels("tracked path", solver, result.state, oracle, seed + 7)
+    metrics = {
+        "batch": batch, **ANYTIME, "compute_dtype": "bfloat16", "seconds": seconds,
+        "iterations_mean": mean_iterations, "iterations_max": steps_run,
+        "iterations_min": int(result.iterations.min()),
+        # per iteration a problem actually ran (its own early stop counted)
+        "us_per_iteration_per_problem": per_problem_us(seconds, mean_iterations, batch),
+        # per step the batch ran (every problem computed until the last stops)
+        "us_per_step_per_problem": per_problem_us(seconds, steps_run, batch),
+        "solves_per_s": batch / seconds,
+        "feasible_fraction": feasible,
+        "mean_length_feasible": (float(result.length[result.feasible].mean())
+                                 if feasible > 0 else None),
+        "kernels_held": held,
+    }
+    if feasible < 0.98:
+        raise AssertionError(f"tracked path: feasible fraction {feasible} below the 0.98 floor")
+    return metrics, launches, (solver, result.state, oracle, g)
+
+
+def grouped_solve(device, seed: int, batch: int, steps: int):
+    """Phase 8: the shared-field portfolio, init_state(group_size=8) and
+    run_grouped_with_tracking in f32 on the car scene, `batch` problems (batch
+    / 8 groups of 8 restarts of the car query); each f32 kernel launches once
+    per step, and every group's replicas end bit-identical."""
+    import torch
+
+    from nfopp_tpu_torch import kernels
+    from nfopp_tpu_torch.solver import (
+        ConstrainedSolver,
+        run_grouped_with_tracking,
+        run_planner_config,
+    )
+    from nfopp_tpu_torch.tools.scene import car_world
+    from nfopp_tpu_torch.worlds import rectangle_collision
+
+    oracle, start, goal, bounds = car_world(batch, device)
+    solver = ConstrainedSolver(run_planner_config(), rectangle_collision, device=device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    state = solver.init_state(g, start, goal, bounds, oracle, group_size=GROUP_SIZE)
+    check_replicas((state.field_params, state.field_opt_state), GROUP_SIZE)
+    torch.cuda.synchronize()
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    result = run_grouped_with_tracking(
+        solver, state, oracle, GROUP_SIZE, g, max_iterations=steps,
+        min_iterations=ANYTIME["min_iterations"], check_freq=ANYTIME["check_freq"],
+        samples_per_segment=ANYTIME["samples_per_segment"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+
+    check_launches(launches, MAIN_PATH, steps, "the grouped path")
+    check_replicas((result.state.field_params, result.state.field_opt_state), GROUP_SIZE)
+    check_finite_paths(result.path, (batch, solver.config.trajectory_length + 2, 3),
+                       "grouped path")
+    feasible = float(result.feasible.float().mean())
+    held = hold_path_kernels("grouped path", solver, result.state, oracle, seed + 8)
+    metrics = {
+        "batch": batch, "group_size": GROUP_SIZE, "steps": steps, "compute_dtype": "float32",
+        "seconds": seconds, "us_per_step_per_problem": per_problem_us(seconds, steps, batch),
+        "solves_per_s": batch / seconds, "feasible_fraction": feasible,
+        "groups_with_a_feasible_path": int(result.feasible.reshape(-1, GROUP_SIZE).any(dim=1)
+                                           .sum()),
+        "mean_length_feasible": (float(result.length[result.feasible].mean())
+                                 if feasible > 0 else None),
+        "replicas_bit_identical": True,
+        "kernels_held": held,
+    }
+    if feasible < 0.98:
+        raise AssertionError(f"grouped path: feasible fraction {feasible} below the 0.98 floor")
+    return metrics, launches
+
+
+def two_walls_world(batch: int, device):
+    """(circle oracle, start, goal, bounds) of the holonomic two-walls scene
+    with a disc of radius 0.3 (tests/test_api_service.py:18-22)."""
+    import numpy as np
+    import torch
+
+    from nfopp_tpu_torch.worlds import CircleOracle, pad_obstacle_points, two_walls_environment
+
+    env = two_walls_environment()
+    pts, mask = pad_obstacle_points(env.obstacle_points.astype(np.float32), 32)
+    oracle = CircleOracle(torch.tensor(pts, device=device)[None],
+                          torch.tensor(mask, device=device)[None],
+                          torch.tensor([0.3], device=device),
+                          torch.tensor([[0.0, 3.0, 0.0, 3.0]], device=device))
+
+    def tile(a):
+        return np.tile(np.asarray(a, np.float32)[None], (batch, 1))
+
+    return oracle, tile(env.start), tile(env.goal), tile(env.bounds)
+
+
+def holonomic_solve(device, seed: int, batch: int, steps: int):
+    """Phase 9 (i): HolonomicSolver.run with make_onf_planner's demo config
+    (100 features, no angle features, 400 pretraining iterations) on the
+    two-walls scene; each f32 kernel launches once per step on 2-wide points.
+    The feasible fraction is printed, not held."""
+    import torch
+
+    from nfopp_tpu_torch import kernels
+    from nfopp_tpu_torch.solver import PlannerFactory, evaluate_path
+    from nfopp_tpu_torch.worlds import circle_collision
+
+    oracle, start, goal, bounds = two_walls_world(batch, device)
+    solver = PlannerFactory.make_onf_planner(circle_collision, oracle, device=device).solver
+    g = torch.Generator(device=device).manual_seed(seed)
+    state = solver.init_state(g, start, goal, bounds, oracle)
+    torch.cuda.synchronize()
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    state, aux = solver.run(state, oracle, steps, g)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+
+    check_launches(launches, MAIN_PATH, steps, "the holonomic path")
+    paths = solver.full_trajectory(state)
+    check_finite_paths(paths, (batch, solver.config.trajectory_length + 2, 2), "holonomic path")
+    if not torch.isfinite(aux.field_loss).all() or not torch.isfinite(aux.trajectory_loss).all():
+        raise AssertionError("holonomic path: non-finite losses")
+    collides, length = evaluate_path(circle_collision, oracle, paths)
+    feasible = float((~collides).float().mean())
+    held = hold_path_kernels("holonomic path", solver, state, oracle, seed + 9)
+    return {
+        "batch": batch, "steps": steps, "config": "make_onf_planner", "seconds": seconds,
+        "us_per_step_per_problem": per_problem_us(seconds, steps, batch),
+        "feasible_fraction": feasible, "feasible_count": int((~collides).sum()),
+        "mean_length_feasible": float(length[~collides].mean()) if feasible > 0 else None,
+        "launches": {name: launches[name] for name in MAIN_PATH},
+        "kernels_held": held,
+    }
+
+
+def drive_planner(what: str, planner, start, goal, bounds, new_goal, new_start, oracle_fn,
+                  oracle, steps: int, seed: int) -> dict:
+    """The ContinuousPlanner interface on one problem: init, `steps` steps
+    (each f32 kernel once per step), moved goal and start, new bounds, 50
+    more steps; the endpoints stay pinned (tests/test_api_service.py:70-100).
+    After the `steps` steps every kernel is held on the planner's own inputs
+    (`hold_path_kernels`)."""
+    import numpy as np
+    import torch
+
+    from nfopp_tpu_torch import kernels
+    from nfopp_tpu_torch.solver import evaluate_path
+
+    def pinned(path, first, last, what):
+        if not np.isfinite(path).all():
+            raise AssertionError(f"planner API: non-finite path after {what}")
+        for got, want in ((path[0], first), (path[-1], last)):
+            if not np.allclose(got, want, atol=1e-5):
+                raise AssertionError(f"planner API: endpoint {got} is not {want} after {what}")
+
+    planner.init(start, goal, bounds)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    planner.step(steps)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check_launches(dict(kernels.LAUNCHES), MAIN_PATH, steps, "the planner API")
+    path = planner.get_path()
+    n = planner.solver.config.trajectory_length
+    if path.shape != (n + 2, len(start)):
+        raise AssertionError(f"planner API: path shape {path.shape}")
+    pinned(path, start, goal, "init and step")
+    collides, length = evaluate_path(oracle_fn, oracle,
+                                     torch.tensor(path, device=planner.solver.device)[None])
+    held = hold_path_kernels(what, planner.solver, planner.state, oracle, seed)
+    planner.update_goal_point(new_goal)
+    pinned(planner.get_path(), start, new_goal, "update_goal_point")
+    planner.update_start_point(new_start)
+    pinned(planner.get_path(), new_start, new_goal, "update_start_point")
+    planner.set_boundaries((0.0, 4.0, 0.0, 4.0))
+    planner.step(50)
+    pinned(planner.get_path(), new_start, new_goal, "set_boundaries and 50 steps")
+    return {"steps": steps, "seconds": seconds, "feasible": not bool(collides[0]),
+            "length": float(length[0]), "config": str(planner.solver.config.onf),
+            "kernels_held": held}
+
+
+def planner_api(device, seed: int, steps: int) -> dict:
+    """Phase 9 (ii): the constrained planner of DEFAULT_PARAMETERS (no angle
+    features on SE(2) poses) on the car scene, and make_onf_planner's
+    holonomic planner on the two-walls scene, one problem each."""
+    from nfopp_tpu_torch.solver import DEFAULT_PARAMETERS, PlannerFactory
+    from nfopp_tpu_torch.tools.scene import car_world
+    from nfopp_tpu_torch.worlds import circle_collision, rectangle_collision
+
+    car, start, goal, bounds = car_world(1, device)
+    constrained = PlannerFactory.make_constrained_onf_planner(
+        rectangle_collision, car, DEFAULT_PARAMETERS, seed=seed, device=device)
+    walls, start2, goal2, bounds2 = two_walls_world(1, device)
+    holonomic = PlannerFactory.make_onf_planner(circle_collision, walls, seed=seed, device=device)
+    return {
+        "constrained": drive_planner("constrained planner", constrained, start[0], goal[0],
+                                     bounds[0], [2.0, 2.0, 0.3], [0.6, 0.6, 0.0],
+                                     rectangle_collision, car, steps, seed + 10),
+        "holonomic": drive_planner("holonomic planner", holonomic, start2[0], goal2[0],
+                                   bounds2[0], [2.0, 2.0], [0.6, 0.6], circle_collision, walls,
+                                   steps, seed + 11),
+    }
+
+
+def checkpoint_round_trip(solver, state, oracle, g) -> dict:
+    """Phase 9 (iii): phase 7's solve, tracked one more chunk, saved with its
+    generator, restored bit for bit, and resumed for two chunks bit for bit
+    as the uninterrupted run (on the card, at phase 7's batch)."""
+    import tempfile
+
+    import torch
+
+    from nfopp_tpu_torch.solver import (
+        restore_state,
+        run_tracking_segment,
+        save_state,
+        tracking_init,
+    )
+    from nfopp_tpu_torch.utils.tree import tree_leaves
+
+    def segment(carry, end, noise):
+        return run_tracking_segment(solver, carry, oracle, end, noise, 0,
+                                    ANYTIME["check_freq"], ANYTIME["samples_per_segment"], True)
+
+    def same(a, b) -> bool:
+        return all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+    carry = segment(tracking_init(solver, state), 1, g)
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        t0 = time.perf_counter()
+        path = save_state(carry, pathlib.Path(tmp) / "carry.npz", generator=g)
+        save_s = time.perf_counter() - t0
+        size = path.stat().st_size
+        straight = segment(carry, 3, g)
+        fresh = torch.Generator(device=g.device)
+        t0 = time.perf_counter()
+        restored = restore_state(tracking_init(solver, state), path, generator=fresh)
+        restore_s = time.perf_counter() - t0
+    if not same(restored, carry):
+        raise AssertionError("checkpoint: the restored carry differs from the saved one")
+    if not same(segment(restored, 3, fresh), straight):
+        raise AssertionError("checkpoint: the resumed solve differs from the uninterrupted one")
+    return {"batch": int(state.start.shape[0]), "bytes": size, "save_s": save_s,
+            "restore_s": restore_s, "round_trip_bit_identical": True,
+            "resumed_bit_identical": True}
 
 
 def main() -> int:
@@ -1090,6 +1512,22 @@ def main() -> int:
     # are the batch path's, which the line reported before this path existed
     launches.update({name: bf16_launches[name] for name in MAIN_PATH_BF16
                      if name not in BATCH_PATH})
+
+    # 7. tracked (anytime) path, bf16
+    tracked, _, resumable = tracked_solve(device, args.seed, BATCH)
+    print(json.dumps({"tracked_path": {**tracked, "card": card}}), flush=True)
+
+    # 8. shared-field grouped path, f32
+    grouped, _ = grouped_solve(device, args.seed, BATCH, STEPS)
+    print(json.dumps({"grouped_path": {**grouped, "card": card}}), flush=True)
+
+    # 9. holonomic path, planner API, checkpoint
+    holonomic = holonomic_solve(device, args.seed, BATCH, STEPS)
+    print(json.dumps({"holonomic_path": {**holonomic, "card": card}}), flush=True)
+    api = planner_api(device, args.seed, STEPS)
+    print(json.dumps({"planner_api": {**api, "card": card}}), flush=True)
+    checkpoint = checkpoint_round_trip(*resumable)
+    print(json.dumps({"checkpoint": {**checkpoint, "card": card}}), flush=True)
 
     entries = []
     for name, res in kernel_results.items():

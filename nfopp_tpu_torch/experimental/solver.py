@@ -66,11 +66,13 @@ class ExperimentalConstrainedSolver(ConstrainedSolver):
 
     # --------------------------------------------------------- jacobi order
 
-    def _field_and_trajectory(self, state, oracle_params, noise, with_field=None):
+    def _field_and_trajectory(self, state, oracle_params, noise, with_field=None,
+                              group_size: int = 1):
         if not self.jacobi_step:
-            return super()._field_and_trajectory(state, oracle_params, noise, with_field)
+            return super()._field_and_trajectory(state, oracle_params, noise, with_field,
+                                                 group_size)
         prev_traj = state.trajectory
-        sample, field_loss, grads = self._field_grads(state, oracle_params, noise)
+        sample, field_loss, grads = self._field_grads(state, oracle_params, noise, group_size)
         state, traj_loss = self._trajectory_step(state, noise)
         state = self._apply_field_update(state, sample, grads)
         return state._replace(prev_trajectory=prev_traj), field_loss, traj_loss
@@ -101,12 +103,7 @@ class ExperimentalConstrainedSolver(ConstrainedSolver):
         self, states: ConstrainedState, oracle_params: Any, noise, with_reparam: bool,
         problems_per_program: int, with_field: bool = True,
     ) -> tuple[ConstrainedState, StepAux]:
-        cfg = self.config
-        if cfg.optimize_collision_model_freq != 1 and self._static_field_stride() == 1:
-            raise NotImplementedError(
-                "batch-explicit path requires optimize_collision_model_freq == 1 "
-                "or one that divides reparametrize_trajectory_freq"
-            )
+        self._check_static_field_stride("batch-explicit path")
         if with_field:
             states, field_loss = self._field_step_batch(
                 states, oracle_params, noise, problems_per_program

@@ -10,6 +10,7 @@ from .math import wrap_angle
 __all__ = [
     "bce_with_logits",
     "softplus_beta",
+    "distance_loss",
     "distance_loss_se2",
     "boundary_loss",
     "non_holonomic_constraint_deltas",
@@ -33,6 +34,12 @@ def softplus_beta(x: torch.Tensor, beta: float = 1.0) -> torch.Tensor:
     linear = scaled > 20.0
     soft = torch.log1p(torch.exp(torch.where(linear, torch.zeros_like(scaled), scaled))) / beta
     return torch.where(linear, x, soft)
+
+
+def distance_loss(full_trajectory: torch.Tensor) -> torch.Tensor:
+    """Sum of squared consecutive deltas of [B, M, d] paths -> [B]."""
+    delta = full_trajectory[:, 1:] - full_trajectory[:, :-1]
+    return torch.sum(delta * delta, dim=(1, 2))
 
 
 def distance_loss_se2(full_trajectory: torch.Tensor, angle_weight: float) -> torch.Tensor:

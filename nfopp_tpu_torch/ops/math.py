@@ -8,13 +8,35 @@ import math
 
 import torch
 
-__all__ = ["wrap_angle", "linspace", "segment_lengths", "arc_length_cdf", "dense_path"]
+__all__ = [
+    "wrap_angle", "unfold_angles", "sinc", "linspace", "segment_lengths", "arc_length_cdf",
+    "dense_path",
+]
 
 
 def wrap_angle(angles: torch.Tensor) -> torch.Tensor:
     """Wrap angles into [-pi, pi). A floor-mod, like jnp's `%`: `torch.remainder`
     takes the divisor's sign, where `fmod` would keep the dividend's."""
     return torch.remainder(angles + math.pi, 2.0 * math.pi) - math.pi
+
+
+def unfold_angles(angles: torch.Tensor) -> torch.Tensor:
+    """Make angle sequences [..., M] continuous by unwrapping +-2pi jumps
+    along the last axis (`ops/math.py:27-37`, which takes one sequence)."""
+    angles = wrap_angle(angles)
+    delta = angles[..., 1:] - angles[..., :-1]
+    delta = torch.where(delta > math.pi, delta - 2.0 * math.pi, delta)
+    delta = torch.where(delta < -math.pi, delta + 2.0 * math.pi, delta)
+    steps = torch.cat([torch.zeros_like(angles[..., :1]), torch.cumsum(delta, dim=-1)], dim=-1)
+    return angles[..., :1] + steps
+
+
+def sinc(x: torch.Tensor, epsilon: float = 1e-4) -> torch.Tensor:
+    """sin(x)/x with |x| clamped to at least epsilon; zero clamps to
+    +epsilon, so sinc(0) is ~1 (`ops/math.py:40-49`)."""
+    sign = torch.where(x >= 0, 1.0, -1.0)
+    x = torch.where(torch.abs(x) > epsilon, x, sign * epsilon)
+    return torch.sin(x) / x
 
 
 def linspace(start: torch.Tensor, stop: torch.Tensor, num: int) -> torch.Tensor:

@@ -1,6 +1,7 @@
-"""Arc-length reparametrization of batched SE(2) paths (port of
-`nfopp_tpu/ops/reparametrize.py`): trajectory plus both multiplier vectors,
-resampled with one shared set of indices and lerp coordinates."""
+"""Arc-length reparametrization of batched paths (port of
+`nfopp_tpu/ops/reparametrize.py`): the holonomic resample, and the SE(2)
+one of trajectory plus both multiplier vectors with one shared set of
+indices and lerp coordinates."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -12,6 +13,7 @@ from .math import arc_length_cdf, wrap_angle
 __all__ = [
     "ArcLengthInterp",
     "arc_length_interp",
+    "reparametrize_xy",
     "reparametrize_se2",
     "reparametrize_collision_multipliers",
     "reparametrize_constraint_multipliers",
@@ -55,6 +57,16 @@ def arc_length_interp(full_trajectory: torch.Tensor, distance_dims: int) -> ArcL
 def _rows(values: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     """values [B, M, d] gathered at index [B, N] -> [B, N, d]."""
     return torch.gather(values, 1, index[..., None].expand(-1, -1, values.shape[-1]))
+
+
+def reparametrize_xy(full_trajectory: torch.Tensor) -> torch.Tensor:
+    """Holonomic resample of [B, N+2, d] paths: every coordinate lerped, arc
+    length over all of them. Returns the new interior waypoints [B, N, d]."""
+    interp = arc_length_interp(full_trajectory, full_trajectory.shape[-1])
+    t = interp.t[..., None]
+    below = _rows(full_trajectory, interp.index_below)
+    above = _rows(full_trajectory, interp.index_above)
+    return (1.0 - t) * below + t * above
 
 
 def reparametrize_se2(full_trajectory: torch.Tensor) -> tuple[torch.Tensor, ArcLengthInterp]:

@@ -13,7 +13,14 @@ import math
 
 import torch
 
-__all__ = ["GeneratorNoise", "gumbel_noise", "gumbel_topk_log_indices", "uniform_box_points"]
+__all__ = [
+    "GeneratorNoise",
+    "gumbel_noise",
+    "gumbel_topk_indices",
+    "gumbel_topk_log_indices",
+    "random_intermediate_positions",
+    "uniform_box_points",
+]
 
 
 class GeneratorNoise:
@@ -40,12 +47,42 @@ def gumbel_noise(uniform: torch.Tensor) -> torch.Tensor:
     return -torch.log(-torch.log(torch.clamp(uniform, min=1e-20) + 1e-20))
 
 
+def _uniform_draws(draws, shape, device) -> torch.Tensor:
+    """`draws` itself (uniform(0, 1) draws of `shape`) or, for a noise
+    source, a block drawn from it."""
+    if torch.is_tensor(draws):
+        if tuple(draws.shape) != tuple(shape):
+            raise ValueError(f"expected uniform draws of shape {tuple(shape)}, "
+                             f"got {tuple(draws.shape)}")
+        return draws.to(device)
+    return draws.uniform(tuple(shape), device)
+
+
+def gumbel_topk_indices(draws, weights: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices [B, k] of a weighted sample of size k without replacement
+    from non-negative weights [B, M] (Gumbel top-k; weights <= 0 come last).
+    `draws`: uniform(0, 1) draws shaped like `weights`, or a noise source
+    to draw them from (the JAX version takes a key, `ops/sampling.py:33`)."""
+    u = _uniform_draws(draws, weights.shape, weights.device)
+    scores = torch.log(torch.clamp(weights, min=1e-30)) + gumbel_noise(u)
+    return torch.topk(scores, k, dim=-1).indices
+
+
 def gumbel_topk_log_indices(
     log_weights: torch.Tensor, gumbel: torch.Tensor, k: int
 ) -> torch.Tensor:
     """Indices [B, k] of a weighted draw without replacement (Gumbel top-k),
     in descending score order like `jax.lax.top_k`."""
     return torch.topk(log_weights + gumbel, k, dim=-1).indices
+
+
+def random_intermediate_positions(draws, trajectory: torch.Tensor) -> torch.Tensor:
+    """One uniform point per segment of trajectories [B, N, d] -> [B, N-1, d]:
+    traj[1:] * (1 - t) + traj[:-1] * t, with t [B, N-1, 1] the uniform
+    `draws` or drawn from a noise source (`ops/sampling.py:58-66`)."""
+    batch, n = trajectory.shape[:2]
+    t = _uniform_draws(draws, (batch, n - 1, 1), trajectory.device)
+    return trajectory[:, 1:] * (1.0 - t) + trajectory[:, :-1] * t
 
 
 def uniform_box_points(u: torch.Tensor, bounds: torch.Tensor, with_angle: bool = False) -> torch.Tensor:

@@ -16,6 +16,12 @@ On CUDA the three field passes of a step go through the hand-written kernels
 (`nfopp_tpu_torch.kernels`): candidate scoring, field loss and gradients, and
 the trajectory's collision terms with their backward. On the CPU the same
 calls run their plain PyTorch versions.
+
+`run_grouped` is the shared-field group mode: each group of `group_size`
+consecutive problems (one map) keeps one field, in lockstep replicas that
+start identical (`init_state(group_size=...)`) and step on the group's mean
+field gradient. The run loop and the field update are shared with
+`HolonomicSolver` through `_FieldSolver`.
 """
 from __future__ import annotations
 
@@ -41,7 +47,7 @@ from ..ops.reparametrize import (
 )
 from ..ops.sampling import GeneratorNoise, uniform_box_points
 from ..utils.device import check_device
-from ..utils.tree import tree_where
+from ..utils.tree import tree_leaves, tree_map, tree_where
 from .adam import AdamState, adam_init, adam_update
 from .config import SolverConfig
 from .field import field_loss_and_grad, sample_field_points
@@ -53,8 +59,8 @@ OracleFn = Callable[[Any, torch.Tensor], torch.Tensor]
 
 
 def _check_chunkable(name: str, num_steps: int, freq: int) -> None:
-    """The batch-explicit run loop has no dynamic fallback: it needs the
-    static [reparam + freq-1 plain] chunk schedule (`constrained.py:52-61`)."""
+    """The grouped and batch-explicit run loops have no dynamic fallback: they
+    need the static [reparam + freq-1 plain] chunk schedule (`constrained.py:52-61`)."""
     if freq <= 1:
         raise ValueError(f"{name} requires reparametrize_trajectory_freq > 1")
     if num_steps % freq != 0:
@@ -62,6 +68,39 @@ def _check_chunkable(name: str, num_steps: int, freq: int) -> None:
             f"{name} requires num_steps ({num_steps}) to be a multiple of "
             f"reparametrize_trajectory_freq ({freq})"
         )
+
+
+def _group_rows(tree: Any, batch: int, group_size: int) -> Any:
+    """The first problem of each group: every leaf with a leading problem axis
+    of `batch` rows keeps rows 0, g, 2g, ...; shared leaves (axis 1) stay."""
+    def pick(x):
+        return x[::group_size] if x.ndim and x.shape[0] == batch else x
+
+    return tree_map(pick, tree)
+
+
+def _group_mean(g: torch.Tensor, group_size: int) -> torch.Tensor:
+    """Mean over each group of `group_size` consecutive batch rows, broadcast
+    back to the full batch shape (every replica gets the same bits)."""
+    grouped = g.reshape((g.shape[0] // group_size, group_size) + tuple(g.shape[1:]))
+    return torch.mean(grouped, dim=1, keepdim=True).expand(grouped.shape).reshape(g.shape)
+
+
+def _check_groups(batch: int, group_size: int, bounds: torch.Tensor, oracle_params: Any) -> None:
+    """A shared-field group is one map: every problem of a group has the same
+    bounds and oracle leaves (`parallel/batch.py:208-224`)."""
+    if group_size < 1 or batch % group_size != 0:
+        raise ValueError(f"batch {batch} not divisible by group {group_size}")
+    for name, tree in (("oracle_params", oracle_params), ("bounds", bounds)):
+        for leaf in tree_leaves(tree):
+            if leaf.ndim == 0 or leaf.shape[0] != batch:
+                continue  # one world shared by the whole batch
+            grouped = leaf.reshape((batch // group_size, group_size) + tuple(leaf.shape[1:]))
+            if not bool((grouped == grouped[:, :1]).all()):
+                raise ValueError(
+                    f"{name} differ within a shared-field group; every problem in a "
+                    "group must share one map"
+                )
 
 
 class ConstrainedState(NamedTuple):
@@ -91,17 +130,19 @@ def _as_noise(noise):
     return GeneratorNoise(noise) if isinstance(noise, torch.Generator) else noise
 
 
-class ConstrainedSolver:
-    """Hyperparameters, oracle and constants of a batched solve.
-
-    Methods map a batched state to a new one. The oracle is a callable
-    `(oracle_params, positions [B, M, 3]) -> bool [B, M]`.
+class _FieldSolver:
+    """What the constrained and holonomic solvers share: the field update and
+    its pretraining, the step schedule and the run loop. A subclass sets
+    `_pose_dim` (3 for SE(2) poses, 2 for points) and gives the trajectory
+    update (`_trajectory_step`) and the reparametrization (`_reparametrize`).
     """
 
-    def __init__(self, config: SolverConfig, oracle_fn: OracleFn, device="cuda"):
+    _pose_dim = 3
+
+    def __init__(self, config: SolverConfig, oracle_fn: OracleFn, device, who: str):
         self.config = config
         self.oracle_fn = oracle_fn
-        self.device = check_device(device, "ConstrainedSolver")
+        self.device = check_device(device, who)
         n = config.trajectory_length
         self._inv_hessian = torch.as_tensor(
             inverse_velocity_hessian(n, config.velocity_hessian_weight), device=self.device
@@ -121,6 +162,171 @@ class ConstrainedSolver:
         b1, b2 = self.config.trajectory_betas
         return adam_update(grads, opt_state, params, self.config.trajectory_lr, b1, b2,
                            self.config.adam_eps)
+
+    # ------------------------------------------------------------------ init
+
+    def _pretrain_field(self, state, oracle_params, generator, group_size: int = 1):
+        """Field pretraining on uniform random points, on the first problem of
+        each group of `group_size` (whose replicas share its field, bounds and
+        world), then repeated over the group."""
+        cfg = self.config
+        batch = state.start.shape[0]
+        params, opt_state = _group_rows((state.field_params, state.field_opt_state), batch,
+                                        group_size)
+        bounds = state.bounds[::group_size]
+        oracle_params = _group_rows(oracle_params, batch, group_size)
+        for _ in range(cfg.init_collision_iteration):
+            u = torch.rand((bounds.shape[0], cfg.init_collision_points, self._pose_dim),
+                           generator=generator, device=generator.device).to(self.device)
+            points = uniform_box_points(u, bounds, self._pose_dim == 3)
+            truth = self.oracle_fn(oracle_params, points)
+            _, grads = field_loss_and_grad(cfg, params, points, truth)
+            params, opt_state = self._field_adam(grads, opt_state, params)
+        params, opt_state = tree_map(lambda x: x.repeat_interleave(group_size, dim=0),
+                                     (params, opt_state))
+        return state._replace(field_params=params, field_opt_state=opt_state)
+
+    # ------------------------------------------------------------------ step
+
+    def full_trajectory(self, state) -> torch.Tensor:
+        """[B, N+2, d] trajectories with the pinned endpoints."""
+        return torch.cat([state.start[:, None], state.trajectory, state.goal[:, None]], dim=1)
+
+    def step(self, state, oracle_params: Any, noise):
+        """One step with the reference's dynamic schedule, decided per problem
+        from step_count (reparametrization computed for all, kept where due)."""
+        noise = _as_noise(noise)
+        state, field_loss, traj_loss = self._field_and_trajectory(state, oracle_params, noise)
+        due = state.step_count % self.config.reparametrize_trajectory_freq == 0
+        state = tree_where(due, self._reparametrize(state), state)
+        state = state._replace(step_count=state.step_count + 1)
+        return state, StepAux(field_loss, traj_loss)
+
+    def _field_and_trajectory(self, state, oracle_params, noise, with_field: bool | None = None,
+                              group_size: int = 1):
+        """Field update, then the trajectory update that reads the new field.
+
+        with_field: None = config-driven (every step, or where step_count %
+        optimize_collision_model_freq == 0); True/False = decided statically.
+        group_size > 1: the field steps on each group's mean gradient.
+        """
+        cfg = self.config
+        batch = state.start.shape[0]
+        if with_field is False:
+            field_loss = torch.zeros((batch,), device=self.device)
+        elif with_field is True or cfg.optimize_collision_model_freq == 1:
+            state, field_loss = self._field_step(state, oracle_params, noise, group_size)
+        else:
+            due = state.step_count % cfg.optimize_collision_model_freq == 0
+            trained, loss = self._field_step(state, oracle_params, noise, group_size)
+            state = tree_where(due, trained, state)
+            field_loss = torch.where(due, loss, torch.zeros_like(loss))
+        state, traj_loss = self._trajectory_step(state, noise)
+        return state, field_loss, traj_loss
+
+    def step_static(self, state, oracle_params: Any, noise, with_reparam: bool,
+                    with_field: bool | None = None, group_size: int = 1):
+        """Step with the reparametrization (and optionally the field update)
+        decided by the caller, as `run`'s static schedule does; group_size > 1
+        for the shared-field group mode (`run_grouped`)."""
+        noise = _as_noise(noise)
+        state, field_loss, traj_loss = self._field_and_trajectory(
+            state, oracle_params, noise, with_field, group_size
+        )
+        if with_reparam:
+            state = self._reparametrize(state)
+        state = state._replace(step_count=state.step_count + 1)
+        return state, StepAux(field_loss, traj_loss)
+
+    def _field_grads(self, state, oracle_params: Any, noise, group_size: int = 1):
+        """Sample -> oracle -> BCE loss + parameter grads (no update); with
+        group_size > 1 the grads are each group's mean (the losses stay per
+        problem, each on its own training points)."""
+        cfg = self.config
+        sample = sample_field_points(
+            cfg, noise, state.prev_trajectory, state.buffer_points, state.buffer_ages,
+            state.field_params, state.bounds,
+        )
+        truth = self.oracle_fn(oracle_params, sample.train_points)
+        loss, grads = field_loss_and_grad(cfg, state.field_params, sample.train_points, truth)
+        if group_size > 1:
+            grads = tree_map(lambda g: _group_mean(g, group_size), grads)
+        return sample, loss, grads
+
+    def _apply_field_update(self, state, sample, grads):
+        params, opt_state = self._field_adam(grads, state.field_opt_state, state.field_params)
+        return state._replace(
+            field_params=params,
+            field_opt_state=opt_state,
+            buffer_points=sample.buffer_points,
+            buffer_ages=sample.buffer_ages,
+            prev_trajectory=state.trajectory,
+        )
+
+    def _field_step(self, state, oracle_params, noise, group_size: int = 1):
+        sample, loss, grads = self._field_grads(state, oracle_params, noise, group_size)
+        return self._apply_field_update(state, sample, grads), loss
+
+    # ------------------------------------------------------------- run loop
+
+    def _static_field_stride(self) -> int:
+        s = self.config.optimize_collision_model_freq
+        freq = self.config.reparametrize_trajectory_freq
+        return s if s > 1 and freq % s == 0 else 1
+
+    def _check_static_field_stride(self, what: str) -> None:
+        """The run loops without a dynamic schedule (grouped, batch-explicit)
+        train the field every step or at a static stride only."""
+        if self.config.optimize_collision_model_freq != 1 and self._static_field_stride() == 1:
+            raise NotImplementedError(
+                f"{what} requires optimize_collision_model_freq == 1 "
+                "or one that divides reparametrize_trajectory_freq"
+            )
+
+    def run(self, state, oracle_params: Any, num_steps: int, noise):
+        """Run `num_steps` steps; aux is stacked [B, num_steps].
+
+        With num_steps a multiple of reparametrize_trajectory_freq and every
+        problem at the start of a chunk (step_count % freq == 0, as after
+        init_state / update_* / set_boundaries / retarget) the schedule is
+        static (`scan_chunked`); otherwise every step decides from step_count
+        (`step`). Reading step_count costs one device sync per call.
+        """
+        noise = _as_noise(noise)
+        freq = self.config.reparametrize_trajectory_freq
+        aligned = freq > 1 and bool((state.step_count % freq == 0).all())
+        if not aligned or num_steps % freq != 0:
+            aux = []
+            for _ in range(num_steps):
+                state, a = self.step(state, oracle_params, noise)
+                aux.append(a)
+        else:
+            stride = self._static_field_stride()
+
+            def step_fn(s, with_reparam, with_field):
+                return self.step_static(s, oracle_params, noise, with_reparam,
+                                        with_field if stride > 1 else None)
+
+            state, aux = scan_chunked(step_fn, state, num_steps, freq, field_stride=stride)
+        return state, StepAux(*(torch.stack(xs, dim=1) for xs in zip(*aux)))
+
+    # ------------------------------------------------- live problem updates
+
+    def set_boundaries(self, state, bounds):
+        """New boundary boxes [B, 4]; resets the schedule."""
+        return state._replace(bounds=self._tensor(bounds),
+                              step_count=torch.zeros_like(state.step_count))
+
+
+class ConstrainedSolver(_FieldSolver):
+    """Hyperparameters, oracle and constants of a batched solve.
+
+    Methods map a batched state to a new one. The oracle is a callable
+    `(oracle_params, positions [B, M, 3]) -> bool [B, M]`.
+    """
+
+    def __init__(self, config: SolverConfig, oracle_fn: OracleFn, device="cuda"):
+        super().__init__(config, oracle_fn, device, "ConstrainedSolver")
 
     # ------------------------------------------------------------------ init
 
@@ -155,18 +361,29 @@ class ConstrainedSolver:
         bounds,
         oracle_params: Any,
         trajectory: torch.Tensor | None = None,
+        group_size: int = 1,
     ) -> ConstrainedState:
         """Fresh state for a batch of problems: start/goal [B, 3], bounds [B, 4].
 
         Field init, the replay buffer's uniform pre-fill and any pretraining
-        draw from `generator`.
+        draw from `generator`. With group_size > 1 (the shared-field group
+        mode, `run_grouped`) the field init and the pretraining points are
+        drawn once per group of `group_size` consecutive problems and repeated
+        over it, so a group's replicas start identical (JAX gives them one
+        `field_key`, `constrained.py:157`); each problem still draws its own
+        replay buffer. A group must share one map: B divisible by group_size,
+        equal bounds and oracle leaves within each group.
         """
         cfg = self.config
         start, goal, bounds = self._tensor(start), self._tensor(goal), self._tensor(bounds)
         batch = start.shape[0]
+        if group_size != 1:
+            _check_groups(batch, group_size, bounds, oracle_params)
         trajectory = (self.initial_trajectory(start, goal) if trajectory is None
                       else self._tensor(trajectory))
-        field_params = init_onf_params(generator, cfg.onf, batch, self.device)
+        field_params = tree_map(
+            lambda x: x.repeat_interleave(group_size, dim=0),
+            init_onf_params(generator, cfg.onf, batch // group_size, self.device))
         u = torch.rand((batch, cfg.collision_point_count, 3), generator=generator,
                        device=generator.device).to(self.device)
         n = cfg.trajectory_length
@@ -186,98 +403,8 @@ class ConstrainedSolver:
             step_count=torch.zeros((batch,), dtype=torch.int32, device=self.device),
         )
         if cfg.init_collision_iteration > 0:
-            state = self._pretrain_field(state, oracle_params, generator)
+            state = self._pretrain_field(state, oracle_params, generator, group_size)
         return state
-
-    def _pretrain_field(self, state, oracle_params, generator) -> ConstrainedState:
-        """Field pretraining on uniform random points."""
-        cfg = self.config
-        params, opt_state = state.field_params, state.field_opt_state
-        batch = state.start.shape[0]
-        for _ in range(cfg.init_collision_iteration):
-            u = torch.rand((batch, cfg.init_collision_points, 3), generator=generator,
-                           device=generator.device).to(self.device)
-            points = uniform_box_points(u, state.bounds, True)
-            truth = self.oracle_fn(oracle_params, points)
-            _, grads = field_loss_and_grad(cfg, params, points, truth)
-            params, opt_state = self._field_adam(grads, opt_state, params)
-        return state._replace(field_params=params, field_opt_state=opt_state)
-
-    # ------------------------------------------------------------------ step
-
-    def full_trajectory(self, state: ConstrainedState) -> torch.Tensor:
-        """[B, N+2, 3] trajectories with the pinned endpoints."""
-        return torch.cat([state.start[:, None], state.trajectory, state.goal[:, None]], dim=1)
-
-    def step(self, state: ConstrainedState, oracle_params: Any, noise) -> tuple[ConstrainedState, StepAux]:
-        """One step with the reference's dynamic schedule, decided per problem
-        from step_count (reparametrization computed for all, kept where due)."""
-        noise = _as_noise(noise)
-        state, field_loss, traj_loss = self._field_and_trajectory(state, oracle_params, noise)
-        due = state.step_count % self.config.reparametrize_trajectory_freq == 0
-        state = tree_where(due, self._reparametrize(state), state)
-        state = state._replace(step_count=state.step_count + 1)
-        return state, StepAux(field_loss, traj_loss)
-
-    def _field_and_trajectory(self, state, oracle_params, noise, with_field: bool | None = None):
-        """Field update, then the trajectory update that reads the new field.
-
-        with_field: None = config-driven (every step, or where step_count %
-        optimize_collision_model_freq == 0); True/False = decided statically.
-        """
-        cfg = self.config
-        batch = state.start.shape[0]
-        if with_field is False:
-            field_loss = torch.zeros((batch,), device=self.device)
-        elif with_field is True or cfg.optimize_collision_model_freq == 1:
-            state, field_loss = self._field_step(state, oracle_params, noise)
-        else:
-            due = state.step_count % cfg.optimize_collision_model_freq == 0
-            trained, loss = self._field_step(state, oracle_params, noise)
-            state = tree_where(due, trained, state)
-            field_loss = torch.where(due, loss, torch.zeros_like(loss))
-        state, traj_loss = self._trajectory_step(state, noise)
-        return state, field_loss, traj_loss
-
-    def step_static(
-        self, state: ConstrainedState, oracle_params: Any, noise, with_reparam: bool,
-        with_field: bool | None = None,
-    ) -> tuple[ConstrainedState, StepAux]:
-        """Step with the reparametrization (and optionally the field update)
-        decided by the caller, as `run`'s static schedule does."""
-        noise = _as_noise(noise)
-        state, field_loss, traj_loss = self._field_and_trajectory(
-            state, oracle_params, noise, with_field
-        )
-        if with_reparam:
-            state = self._reparametrize(state)
-        state = state._replace(step_count=state.step_count + 1)
-        return state, StepAux(field_loss, traj_loss)
-
-    def _field_grads(self, state: ConstrainedState, oracle_params: Any, noise):
-        """Sample -> oracle -> BCE loss + parameter grads (no update)."""
-        cfg = self.config
-        sample = sample_field_points(
-            cfg, noise, state.prev_trajectory, state.buffer_points, state.buffer_ages,
-            state.field_params, state.bounds,
-        )
-        truth = self.oracle_fn(oracle_params, sample.train_points)
-        loss, grads = field_loss_and_grad(cfg, state.field_params, sample.train_points, truth)
-        return sample, loss, grads
-
-    def _apply_field_update(self, state, sample, grads):
-        params, opt_state = self._field_adam(grads, state.field_opt_state, state.field_params)
-        return state._replace(
-            field_params=params,
-            field_opt_state=opt_state,
-            buffer_points=sample.buffer_points,
-            buffer_ages=sample.buffer_ages,
-            prev_trajectory=state.trajectory,
-        )
-
-    def _field_step(self, state, oracle_params, noise):
-        sample, loss, grads = self._field_grads(state, oracle_params, noise)
-        return self._apply_field_update(state, sample, grads), loss
 
     # ------------------------------------------------------- trajectory loss
 
@@ -297,18 +424,10 @@ class ConstrainedSolver:
         them; the collision terms go through the `collision_terms` kernel
         on CUDA."""
         cfg = self.config
-        batch = trajectory.shape[0]
         full = torch.cat([start[:, None], trajectory, goal[:, None]], dim=1)
-
-        delta = trajectory[:, :-1] - trajectory[:, 1:]
-        delta = torch.cat([delta[..., :2], wrap_angle(delta[..., 2:])], dim=-1)
         samples = t.shape[-1]
-        collision_positions = (
-            trajectory[:, 1:, None, :] + t[..., None] * delta[:, :, None, :]
-        ).reshape(batch, -1, 3)
-        multipliers = (
-            collision_multipliers[:, 1:, None] * (1.0 - t) + collision_multipliers[:, :-1, None] * t
-        ).reshape(batch, -1)
+        collision_positions, multipliers = self.collision_inputs(
+            trajectory, collision_multipliers, t)
         collision_loss, multiplier_loss = collision_terms(
             field_params, collision_positions, multipliers, cfg.onf, cfg.collision_beta
         )
@@ -327,6 +446,24 @@ class ConstrainedSolver:
             + multiplier_loss
             + cfg.direction_delta_weight * torch.sum(direction_deltas**2, dim=1)
         )
+
+    def collision_inputs(
+        self, trajectory: torch.Tensor, collision_multipliers: torch.Tensor, t: torch.Tensor
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The collision terms' points [B, (N-1) S, 3], at `t` [B, N-1, S]
+        along each segment (angles along the wrapped difference), and their
+        multipliers [B, (N-1) S], interpolated the other way round as the
+        reference does."""
+        batch = trajectory.shape[0]
+        delta = trajectory[:, :-1] - trajectory[:, 1:]
+        delta = torch.cat([delta[..., :2], wrap_angle(delta[..., 2:])], dim=-1)
+        positions = (
+            trajectory[:, 1:, None, :] + t[..., None] * delta[:, :, None, :]
+        ).reshape(batch, -1, 3)
+        multipliers = (
+            collision_multipliers[:, 1:, None] * (1.0 - t) + collision_multipliers[:, :-1, None] * t
+        ).reshape(batch, -1)
+        return positions, multipliers
 
     def _trajectory_step(self, state: ConstrainedState, noise) -> tuple[ConstrainedState, torch.Tensor]:
         """Primal step (H^-1-preconditioned Adam) + dual ascent on both
@@ -378,41 +515,34 @@ class ConstrainedSolver:
             ),
         )
 
-    # ------------------------------------------------------------- run loop
+    # ------------------------------------------ shared-field group mode
 
-    def _static_field_stride(self) -> int:
-        s = self.config.optimize_collision_model_freq
-        freq = self.config.reparametrize_trajectory_freq
-        return s if s > 1 and freq % s == 0 else 1
+    def run_grouped(self, states, oracle_params, num_steps: int, group_size: int, noise):
+        """`run` with one shared field per group of `group_size` consecutive
+        problems (same map: portfolio restarts, multi-query planning). Start
+        from `init_state(..., group_size=group_size)` so the replicas start
+        identical; every field step applies the group's mean gradient, which
+        keeps them in lockstep. Draws the same noise as `run` (group_size=1
+        reproduces it exactly).
 
-    def run(
-        self, state: ConstrainedState, oracle_params: Any, num_steps: int, noise,
-    ) -> tuple[ConstrainedState, StepAux]:
-        """Run `num_steps` steps; aux is stacked [B, num_steps].
-
-        With num_steps a multiple of reparametrize_trajectory_freq and every
-        problem at the start of a chunk (step_count % freq == 0, as after
-        init_state / update_* / retarget) the schedule is static
-        (`scan_chunked`); otherwise every step decides from step_count
-        (`step`). Reading step_count costs one device sync per call.
+        The schedule is static only: num_steps a multiple of the
+        reparametrization freq, and every problem entering at a chunk's start
+        (step_count % freq == 0, not checked), as JAX's `run_grouped`.
         """
-        noise = _as_noise(noise)
         freq = self.config.reparametrize_trajectory_freq
-        aligned = freq > 1 and bool((state.step_count % freq == 0).all())
-        if not aligned or num_steps % freq != 0:
-            aux = []
-            for _ in range(num_steps):
-                state, a = self.step(state, oracle_params, noise)
-                aux.append(a)
-        else:
-            stride = self._static_field_stride()
-
-            def step_fn(s, with_reparam, with_field):
-                return self.step_static(s, oracle_params, noise, with_reparam,
-                                        with_field if stride > 1 else None)
-
-            state, aux = scan_chunked(step_fn, state, num_steps, freq, field_stride=stride)
-        return state, StepAux(*(torch.stack(xs, dim=1) for xs in zip(*aux)))
+        _check_chunkable("run_grouped", num_steps, freq)
+        if states.trajectory.shape[0] % group_size != 0:
+            raise ValueError(
+                f"batch {states.trajectory.shape[0]} not divisible by "
+                f"group_size {group_size}"
+            )
+        self._check_static_field_stride("shared-field mode")
+        noise = _as_noise(noise)
+        states, aux = scan_chunked(
+            lambda s, r, f: self.step_static(s, oracle_params, noise, r, f, group_size),
+            states, num_steps, freq, field_stride=self._static_field_stride(),
+        )
+        return states, StepAux(*(torch.stack(xs, dim=1) for xs in zip(*aux)))
 
     # ------------------------------------------------- live problem updates
 

@@ -5,7 +5,7 @@ from typing import Any, Callable
 
 import torch
 
-__all__ = ["tree_map", "tree_leaves", "tree_where"]
+__all__ = ["tree_map", "tree_leaves", "tree_named_leaves", "tree_where"]
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
@@ -30,6 +30,23 @@ def tree_leaves(tree: Any) -> list[torch.Tensor]:
     if isinstance(tree, (tuple, list)):
         return [leaf for x in tree for leaf in tree_leaves(x)]
     return []
+
+
+def tree_named_leaves(tree: Any, prefix: str = "") -> list[tuple[str, torch.Tensor]]:
+    """(path, leaf) pairs in `tree_leaves` order; a path joins NamedTuple
+    field names, dict keys and sequence indices with "/"."""
+    if isinstance(tree, torch.Tensor):
+        return [(prefix, tree)]
+    if isinstance(tree, dict):
+        items = ((str(k), tree[k]) for k in tree)
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        items = zip(tree._fields, tree)
+    elif isinstance(tree, (tuple, list)):
+        items = ((str(i), x) for i, x in enumerate(tree))
+    else:
+        return []
+    return [pair for key, x in items
+            for pair in tree_named_leaves(x, f"{prefix}/{key}" if prefix else key)]
 
 
 def tree_where(mask: torch.Tensor, a: Any, b: Any) -> Any:

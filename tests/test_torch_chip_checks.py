@@ -295,3 +295,112 @@ def test_tensor_core_kernels_raises_on_hmma_in_an_f32_kernel(f32_kernel):
     hmma[f32_kernel] = 8
     with pytest.raises(AssertionError, match="f32 kernels with tensor-core instructions"):
         cs.tensor_core_kernels(sass_listing(hmma))
+
+
+def test_check_launches_wants_each_path_kernel_once_per_step():
+    path = ("onf_forward", "field_grad")
+    launches = {name: 0 for name in kernels.LAUNCHES}
+    launches.update(onf_forward=150, field_grad=150)
+    cs.check_launches(launches, path, 150, "a test")
+    for name, count in (("field_grad", 149), ("collision_fwd", 1)):
+        wrong = dict(launches, **{name: count})
+        with pytest.raises(AssertionError, match=f"kernel {name} launched {count} times"):
+            cs.check_launches(wrong, path, 150, "a test")
+
+
+def test_check_replicas_holds_groups_bit_identical_and_distinct():
+    g = torch.Generator().manual_seed(0)
+    params = init_onf_params(g, ONFConfig(hidden=8), 3)
+    tree = tree_map(lambda x: x.repeat_interleave(4, dim=0), params)
+    cs.check_replicas(tree, 4)
+    flipped = tree_map(lambda x: x.clone(), tree)
+    flipped["mlp2"]["w"][5, 1, 2] = torch.nextafter(flipped["mlp2"]["w"][5, 1, 2],
+                                                     torch.tensor(1.0))
+    with pytest.raises(AssertionError, match="differs within a group"):
+        cs.check_replicas(flipped, 4)
+    same = tree_map(lambda x: x[:1].expand(12, *x.shape[1:]).contiguous(), params)
+    with pytest.raises(AssertionError, match="same field"):
+        cs.check_replicas(same, 4)
+
+
+def test_tracked_rates_divide_by_the_iterations_run():
+    """µs per iteration per problem divides by the mean iterations actually
+    run, not the budget."""
+    assert cs.per_problem_us(2.0, 250.0, 8) == pytest.approx(1000.0)
+    assert cs.per_problem_us(2.0, 1000, 8) == pytest.approx(250.0)
+
+
+def test_check_finite_paths():
+    cs.check_finite_paths(torch.zeros(2, 5, 3), (2, 5, 3), "a test")
+    for bad in (torch.zeros(2, 5, 2), torch.full((2, 5, 3), float("nan"))):
+        with pytest.raises(AssertionError, match="bad paths"):
+            cs.check_finite_paths(bad, (2, 5, 3), "a test")
+
+
+@pytest.fixture(scope="module", params=["constrained", "holonomic"])
+def path_state(request):
+    """A small solver of each kind, 10 steps into a solve of 2 problems, with
+    (solver, state, oracle, width of its points, collision samples)."""
+    from nfopp_tpu_torch.solver import ConstrainedSolver, HolonomicSolver, SolverConfig
+    from nfopp_tpu_torch.tools.scene import car_world
+    from nfopp_tpu_torch.worlds import circle_collision, rectangle_collision
+
+    holonomic = request.param == "holonomic"
+    samples = 1 if holonomic else 2
+    cfg = SolverConfig(trajectory_length=12, collision_point_count=10,
+                       onf=ONFConfig(hidden=16, angle_encoding=False),
+                       init_collision_iteration=0, collision_samples_per_segment=samples)
+    if holonomic:
+        oracle, start, goal, bounds = cs.two_walls_world(2, CPU)
+        solver = HolonomicSolver(cfg, circle_collision, device="cpu")
+    else:
+        oracle, start, goal, bounds = car_world(2, CPU)
+        solver = ConstrainedSolver(cfg, rectangle_collision, device="cpu")
+    state = solver.init_state(torch.Generator().manual_seed(0), start, goal, bounds, oracle)
+    state, _ = solver.run(state, oracle, 10, torch.Generator().manual_seed(1))
+    return solver, state, oracle, 2 if holonomic else 3, samples
+
+
+def test_hold_path_kernels_takes_the_paths_own_shapes(path_state):
+    solver, state, oracle, dim, samples = path_state
+    held = cs.hold_path_kernels("a test", solver, state, oracle, 2)
+    assert held["shapes"] == {"onf_forward": [2, 10 + 11, dim],
+                              "field_grad": [2, 11 + 10 + 10, dim],
+                              "collision": [2, 11 * samples, dim]}
+    assert set(held["max_abs_err"]) == {"onf_forward", "field_grad", "collision_fwd",
+                                        "collision_bwd"}
+
+
+@pytest.mark.parametrize("wrong", ["onf_forward", "field_grad", "collision_fwd",
+                                   "collision_bwd"])
+def test_hold_path_kernels_rejects_a_kernel_off_its_plain_version(path_state, wrong,
+                                                                  monkeypatch):
+    """Each of the four checks fails when its kernel's output moves past the
+    tolerance (a kernel that the CPU stands in for by its plain version)."""
+    solver, state, oracle, _, _ = path_state
+    if wrong == "onf_forward":
+        monkeypatch.setattr(kernels, "onf_forward",
+                            lambda *a: kernels.onf_forward_plain(*a) + 1e-2)
+    elif wrong == "field_grad":
+        def field_grad(*a):
+            loss, grads = kernels.field_grad_plain(*a)
+            return loss, tree_map(lambda t: t * 1.01, grads)
+        monkeypatch.setattr(kernels, "field_grad", field_grad)
+    else:
+        class ScaledGrad(torch.autograd.Function):  # identity, its gradient x 1.01
+            @staticmethod
+            def forward(ctx, x):
+                return x.clone()
+
+            @staticmethod
+            def backward(ctx, g):
+                return g * 1.01
+
+        def collision_terms(params, x, *a):
+            if wrong == "collision_fwd":
+                return tuple(t * 1.01 for t in kernels.collision_terms_plain(params, x, *a))
+            return kernels.collision_terms_plain(params, ScaledGrad.apply(x), *a)
+
+        monkeypatch.setattr(kernels, "collision_terms", collision_terms)
+    with pytest.raises(AssertionError, match=f"a test {wrong}"):
+        cs.hold_path_kernels("a test", solver, state, oracle, 2)

@@ -43,9 +43,16 @@ def test_no_jax_import_statements():
     "nfopp_tpu_torch.experimental.solver",
     "nfopp_tpu_torch.kernels.onf_multi",
     "nfopp_tpu_torch.kernels.field_grad_multi",
+    "nfopp_tpu_torch.solver.tracking",
+    "nfopp_tpu_torch.solver.holonomic",
+    "nfopp_tpu_torch.solver.api",
+    "nfopp_tpu_torch.solver.checkpoint",
+    "nfopp_tpu_torch.utils.config",
+    "nfopp_tpu_torch.worlds.oracle",
 ])
 def test_the_batch_path_modules_load_no_jax(module):
-    """The bf16 batch path's modules, each imported alone."""
+    """The bf16 batch path's modules and the tracked, grouped, holonomic and
+    API modules, each imported alone."""
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {str(ROOT)!r})\n"
