@@ -47,11 +47,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
      features on SE(2) poses) and the holonomic planner, one problem each,
      through init, 1000 steps, moved goal and start, new bounds and 50 more
      steps, with their endpoints pinned; and a checkpoint of phase 7's tracked
-     solve, restored and resumed bit for bit.
-After each solve of phases 7-9 (the tracked and grouped paths, the holonomic
-path and both planners), every kernel of that path is held against its plain
-version on the inputs the path's next step gives it, at the path's own shapes
-(`hold_path_kernels`). Phase 3's check of the other field configurations
+     solve, restored and resumed bit for bit;
+ 10. benchmark suite: run_grid_suite on the corridor suite as its users run
+     it (256 worlds of scripts/run_benchmark_torch.py, geodesic >= 120,
+     bench_parameters, f32, 8 restarts per failure, 128 shortcut trials,
+     the native evaluator); each f32 kernel launches once per step run of
+     each solve and the field-gradient kernel also once per pretraining
+     iteration of each init, paths are finite with pinned endpoints, the
+     feasible fraction after the restart round must reach 0.98, and the
+     wavefront init on the card must equal its CPU run bit for bit; its
+     launches join the f32 kernels' counts in the kernel line.
+After each solve of phases 7-10 (the tracked and grouped paths, the holonomic
+path, both planners and the suite), every kernel of that path is held against
+its plain version on the inputs the path's next step gives it, at the path's
+own shapes (`hold_path_kernels`; on the suite also the field-gradient kernel
+on pretraining's 200 points). Phase 3's check of the other field configurations
 includes both kinds of field these paths add, at small shapes: no angle
 features on SE(2) poses, and on points.
 The last two lines are the card (nvidia-smi) and {"ok": true, "device": ...};
@@ -75,6 +85,13 @@ BATCH, STEPS = 256, 1000  # the bench workload: bench.py's batch and step budget
 ANYTIME = {"max_iterations": 1000, "min_iterations": 200, "check_freq": 50,
            "samples_per_segment": 5, "stop_on_plateau": True}
 GROUP_SIZE = 8  # restarts of one query sharing a field (parallel/batch.py::solve_portfolio)
+# the corridor benchmark suite as its users run it (artifacts/corridor256_summary.json:
+# run_benchmark.py --suite corridor --seeds 256 --min-geodesic 120 --restart-failed 8),
+# with the shortcut pass added
+SUITE_WORLDS = {"suite": "corridor", "seeds": 256, "min_geodesic": 120.0}
+SUITE_SOLVE = {"footprint_radius": 1.0, "max_iterations": 1000, "min_iterations": 200,
+               "check_freq": 50, "stop_on_plateau": True, "restart_failed": 8,
+               "restart_rounds": 1, "shortcut_trials": 128, "require_native_evaluator": True}
 DRIFT_STEPS = 100  # steps of the CUDA-vs-CPU drift readout after the checked step
 PROBLEMS_PER_PROGRAM = (1, 2, 4, 8)  # P of the multi-problem kernels; 8 on the batch path
 
@@ -368,6 +385,19 @@ def explain_by_kinks(name, i, got, tols, params, points, cfg, recompute, bf16=Fa
         + (f", nor one of the {len(tied)} within a bf16 tie's reach" if bf16 else ""))
 
 
+def f64_distances(i, got, want, kinks) -> tuple[list, list]:
+    """Output by output, the largest difference of problem i's kernel
+    outputs and of its plain outputs from their f64 recomputation (no
+    flips)."""
+    from nfopp_tpu_torch.utils.tree import tree_map
+
+    params, points, _, recompute = kinks
+    p = tree_map(lambda t: t[i:i + 1].detach().double(), params)
+    ref = recompute(p, points[i:i + 1].detach().double(), i, ())
+    return ([float((g[i:i + 1].double() - r).abs().max()) for g, r in zip(got, ref)],
+            [float((w[i:i + 1].double() - r).abs().max()) for w, r in zip(want, ref)])
+
+
 def hold(name, got, want, tols, kinks=None, bf16=False) -> float:
     """Hold each kernel output got[j] [B, ...] to the plain version's want[j]
     elementwise at |got - want| <= atol + rtol |want|, (rtol, atol) = tols[j];
@@ -384,7 +414,14 @@ def hold(name, got, want, tols, kinks=None, bf16=False) -> float:
     KINK_TOL of zero under which the f64 recomputation meets the same bounds;
     each such problem is logged. Under bf16 the flips found may be none: the
     plain version, not the kernel, sat on the far side of a bf16 rounding; or
-    one of them a unit within a bf16 tie's reach (`tie_reach_units`).
+    one of them a unit within a bf16 tie's reach (`tie_reach_units`). A
+    problem no flips explain passes only if, output by output, the kernel is
+    no farther from its f64 recomputation than the plain version is from its
+    own on the batch's problem where the plain version is farthest
+    (`f64_distances` over every problem): on a badly conditioned field
+    (trained logits of tens whose f32 sums cancel) no f32 computation meets
+    the bounds, and the kernel is then held to PyTorch's own f32 error on
+    these inputs; logged.
     """
     import torch
 
@@ -399,14 +436,31 @@ def hold(name, got, want, tols, kinks=None, bf16=False) -> float:
     if missed and kinks is None:
         raise AssertionError(f"{name}: problems {missed} outside the bounds {tols}; "
                              f"largest difference {err:.3g}")
+    unexplained = []
     for i in missed:
-        flips = explain_by_kinks(name, i, got, tols, *kinks, bf16=bf16)
+        try:
+            flips = explain_by_kinks(name, i, got, tols, *kinks, bf16=bf16)
+        except AssertionError as reason:
+            unexplained.append((i, reason))
+            continue
         if flips:
             log(f"  {name}: problem {i} (largest difference {err:.3g}) matches an f64 "
                 f"recomputation with ReLU sides flipped at (layer, point, unit) {flips}")
         else:  # the plain version, not the kernel, took the far side of a rounding
             log(f"  {name}: problem {i} (largest difference {err:.3g}) matches an f64 "
                 "recomputation with no ReLU side flipped")
+    if unexplained:  # held to the plain version's f32 error on this batch
+        offs = [f64_distances(b, got, want, kinks) for b in range(len(ok))]
+        noise = [max(plain[j] for _, plain in offs) for j in range(len(got))]
+        for i, reason in unexplained:
+            if any(k > q for k, q in zip(offs[i][0], noise)):
+                raise AssertionError(
+                    f"{reason}; and the kernel is farther from the f64 recomputation "
+                    f"({offs[i][0]}) than the plain version is on any problem ({noise})"
+                ) from None
+            log(f"  {name}: problem {i} (largest difference {err:.3g}) is no farther from "
+                f"the f64 recomputation, output by output, than the plain version is on "
+                f"some problem: {offs[i][0]} vs {noise}")
     if bf16:  # ties, among the problems held by their bounds
         for j, (g, w, (rtol, atol)) in enumerate(zip(got, want, tols)):
             diff, bound = bounds_of(g[ok], w[ok], rtol, atol, bf16=False)
@@ -418,6 +472,15 @@ def hold(name, got, want, tols, kinks=None, bf16=False) -> float:
                 log(f"  {name}: output {j}: {ties} of {count} elements within the bf16 "
                     "tie allowance")
     return err
+
+
+def logits_f64(cfg, casts=None):
+    """recompute() of `hold` for the ONF logits kernel: [1, M, 1]."""
+    def recompute(p, x, i, flips):
+        return [masked_forward(p, x, cfg, flips, casts)[0][..., None]]
+
+    recompute.casts = casts
+    return recompute
 
 
 def field_grad_f64(truth, cfg, casts=None):
@@ -455,6 +518,23 @@ def collision_f64(mult, weights, cfg, beta, casts=None):
             total = (float(weights[0]) * softplus_beta(z, beta).sum()
                      + float(weights[1]) * (mu * torch.tanh(z)).sum())
             return list(torch.autograd.grad(total, (pos, mu)))
+
+    recompute.casts = casts
+    return recompute
+
+
+def collision_sums_f64(mult, cfg, beta, casts=None):
+    """recompute() of `hold` for the collision terms' sums: [1, 2] of
+    (sum softplus_beta(z), sum mu tanh(z))."""
+    import torch
+
+    from nfopp_tpu_torch.ops.losses import softplus_beta
+
+    def recompute(p, x, i, flips):
+        z, _ = masked_forward(p, x, cfg, flips, casts)
+        mu = mult[i:i + 1].double()
+        return [torch.stack([softplus_beta(z, beta).sum(dim=-1),
+                             (mu * torch.tanh(z)).sum(dim=-1)], dim=1)]
 
     recompute.casts = casts
     return recompute
@@ -1099,7 +1179,6 @@ def hold_path_kernels(what: str, solver, state, oracle, seed: int) -> dict:
     from nfopp_tpu_torch import kernels
     from nfopp_tpu_torch.ops.sampling import GeneratorNoise, random_intermediate_positions
     from nfopp_tpu_torch.solver.field import field_sample_post, field_sample_pre
-    from nfopp_tpu_torch.utils.tree import tree_leaves
 
     cfg = solver.config
     onf = cfg.onf
@@ -1113,18 +1192,14 @@ def hold_path_kernels(what: str, solver, state, oracle, seed: int) -> dict:
     logits = kernels.onf_forward(params, candidates, onf)
     errors = {"onf_forward": hold(f"{what} onf_forward", [logits],
                                   [kernels.onf_forward_plain(params, candidates, onf)],
-                                  [(1e-4, 2e-4)], bf16=bf16)}
+                                  [(1e-4, 2e-4)],
+                                  kinks=(params, candidates, onf, logits_f64(onf, casts)),
+                                  bf16=bf16)}
 
     sample = field_sample_post(cfg, pre, logits[..., 0], candidates, ages)
     points = sample.train_points
-    truth = solver.oracle_fn(oracle, points)
-    loss, grads = kernels.field_grad(params, points, truth, onf)
-    ref_loss, ref_grads = kernels.field_grad_plain(params, points, truth, onf)
-    errors["field_grad"] = max(
-        hold(f"{what} field_grad loss", [loss], [ref_loss], [(1e-5, 1e-6)], bf16=bf16),
-        hold(f"{what} field_grad gradients", tree_leaves(grads), tree_leaves(ref_grads),
-             [(2e-4, 2e-5)] * len(tree_leaves(grads)),
-             kinks=(params, points, onf, field_grad_f64(truth, onf, casts)), bf16=bf16))
+    errors["field_grad"] = hold_field_grad(what, params, points,
+                                           solver.oracle_fn(oracle, points), onf)
 
     batch, n = state.trajectory.shape[:2]
     if hasattr(state, "collision_multipliers"):  # the constrained solver's loss
@@ -1140,8 +1215,9 @@ def hold_path_kernels(what: str, solver, state, oracle, seed: int) -> dict:
     weights = torch.tensor(cot, device=solver.device)
     sums = [torch.stack(fn(params, x, mult, onf, beta), dim=1)
             for fn in (kernels.collision_terms, kernels.collision_terms_plain)]
-    errors["collision_fwd"] = hold(f"{what} collision_fwd", sums[:1], sums[1:],
-                                   [(1e-5, 1e-5)], bf16=bf16)
+    errors["collision_fwd"] = hold(
+        f"{what} collision_fwd", sums[:1], sums[1:], [(1e-5, 1e-5)],
+        kinks=(params, x, onf, collision_sums_f64(mult, onf, beta, casts)), bf16=bf16)
     errors["collision_bwd"] = hold(
         f"{what} collision_bwd",
         collision_grads(kernels.collision_terms, params, x, mult, onf, beta, weights),
@@ -1153,6 +1229,25 @@ def hold_path_kernels(what: str, solver, state, oracle, seed: int) -> dict:
     log(f"{what}: kernels held on the path's own inputs {dict(shapes)}: {errors}")
     return {"max_abs_err": errors,
             "shapes": {name: list(shape) for name, shape in shapes.items()}}
+
+
+def hold_field_grad(what: str, params, points, truth, onf) -> float:
+    """The field-gradient kernel (loss and every parameter gradient) against
+    its plain version on training points [B, M, d] and their labels, with
+    phase 3's tolerances and ReLU-kink recomputation (bf16: onf_apply's
+    casts and the tie allowance); returns the largest difference."""
+    from nfopp_tpu_torch import kernels
+    from nfopp_tpu_torch.utils.tree import tree_leaves
+
+    bf16 = onf.compute_dtype == "bfloat16"
+    loss, grads = kernels.field_grad(params, points, truth, onf)
+    ref_loss, ref_grads = kernels.field_grad_plain(params, points, truth, onf)
+    return max(
+        hold(f"{what} field_grad loss", [loss], [ref_loss], [(1e-5, 1e-6)], bf16=bf16),
+        hold(f"{what} field_grad gradients", tree_leaves(grads), tree_leaves(ref_grads),
+             [(2e-4, 2e-5)] * len(tree_leaves(grads)),
+             kinks=(params, points, onf, field_grad_f64(truth, onf, "apply" if bf16 else None)),
+             bf16=bf16))
 
 
 def tracked_solve(device, seed: int, batch: int):
@@ -1441,6 +1536,195 @@ def checkpoint_round_trip(solver, state, oracle, g) -> dict:
             "resumed_bit_identical": True}
 
 
+def bench_script():
+    """scripts/run_benchmark_torch.py as a module: the suite's world generator
+    and planner parameters, as its users run them."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "run_benchmark_torch", ROOT / "scripts" / "run_benchmark_torch.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+class SuiteProbe:
+    """Times and records what `run_grid_suite` runs, by wrapping the names
+    its module looks up (restored on exit): the wavefront init (inputs and
+    output), every BatchPlanner init and solve (batch, steps run, result),
+    every shortcut pass (and the feasibility it leaves) and the evaluation's
+    path statistics. Each timed part ends with a device synchronize."""
+
+    def __init__(self, runner):
+        import torch
+
+        self.runner = runner
+        self.calls = []  # (part, seconds, info)
+        probe = self
+
+        def timed(part, fn, record=None):
+            def call(*args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                probe.calls.append((part, time.perf_counter() - t0,
+                                    record(args, out) if record else None))
+                return out
+            return call
+
+        class Planner(runner.BatchPlanner):
+            init_batch = timed("init", runner.BatchPlanner.init_batch,
+                               lambda args, out: {"batch": int(out.start.shape[0]),
+                                                  "states": out, "oracle": args[5]})
+            solve = timed("solve", runner.BatchPlanner.solve, lambda args, out: {
+                "steps_run": int(out.iterations.max()), "result": out, "solver": args[0].solver})
+
+        self.patches = {
+            "BatchPlanner": Planner,
+            "batched_wavefront_trajectories": timed(
+                "wavefront", runner.batched_wavefront_trajectories,
+                lambda args, out: {"inputs": args, "output": out}),
+            "_shortcut_pass": timed("shortcut", runner._shortcut_pass,
+                                    lambda args, out: {"feasible": out[2].copy()}),
+            "path_statistics": timed("evaluation", runner.path_statistics),
+        }
+
+    def __enter__(self):
+        self.saved = {name: getattr(self.runner, name) for name in self.patches}
+        for name, fn in self.patches.items():
+            setattr(self.runner, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.runner, name, fn)
+
+    def parts(self, part):
+        return [(seconds, info) for p, seconds, info in self.calls if p == part]
+
+
+def suite_solve(device, seed: int) -> tuple[dict, dict]:
+    """Phase 10: the benchmark suite (run_grid_suite) on the corridor suite
+    as its users run it (SUITE_WORLDS, bench_parameters, SUITE_SOLVE). Holds
+    the feasible fraction after the restart round, finite paths with pinned
+    endpoints, each f32 kernel launched once per step run by each solve and
+    the field-gradient kernel also once per pretraining iteration of each
+    init, the CUDA wavefront init equal to a CPU run bit for bit, and every
+    kernel of the path on the inputs of the suite's next step (the
+    field-gradient kernel also on pretraining's 200 points). Returns the
+    metrics and the suite's launches."""
+    import argparse as _argparse
+
+    import numpy as np
+    import torch
+
+    from nfopp_tpu_torch import kernels
+    from nfopp_tpu_torch.bench import runner
+    from nfopp_tpu_torch.ops.sampling import uniform_box_points
+
+    script = bench_script()
+    parameters = script.bench_parameters()
+    t0 = time.perf_counter()
+    scenarios = script.build_scenarios(_argparse.Namespace(**SUITE_WORLDS))
+    build_s = time.perf_counter() - t0
+    batch = len(scenarios)
+
+    with SuiteProbe(runner) as probe:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        result = runner.run_grid_suite(scenarios, parameters, seed=seed, device=device,
+                                       **SUITE_SOLVE)
+        torch.cuda.synchronize()
+        suite_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+
+    inits, solves = probe.parts("init"), probe.parts("solve")
+    shortcuts = probe.parts("shortcut")
+    steps_run = [info["steps_run"] for _, info in solves]
+    pretraining = int(parameters.planner.init_collision_iteration)
+    for name, count in launches.items():
+        want = sum(steps_run) + (pretraining * len(inits) if name == "field_grad" else 0)
+        if count != (want if name in MAIN_PATH else 0):
+            raise AssertionError(f"suite path: kernel {name} launched {count} times, want "
+                                 f"{want if name in MAIN_PATH else 0} (solves of {steps_run} "
+                                 f"steps, {len(inits)} inits)")
+
+    starts = np.stack([sc.start for sc in scenarios])
+    goals = np.stack([sc.goal for sc in scenarios])
+    n = parameters.trajectory_length
+    paths = torch.tensor(result.paths)
+    check_finite_paths(paths, (batch, n + 2, 3), "suite path")
+    for got, want, end in ((result.paths[:, 0], starts, "start"),
+                           (result.paths[:, -1], goals, "goal")):
+        if not np.allclose(got, want, atol=1e-5):
+            raise AssertionError(f"suite path: a path's {end} is not pinned")
+
+    (_, wave), = probe.parts("wavefront")
+    cpu_wave = runner.batched_wavefront_trajectories(
+        *(x.cpu() if torch.is_tensor(x) else x for x in wave["inputs"]))
+    if not torch.equal(cpu_wave, wave["output"].cpu()):
+        diff = float((cpu_wave - wave["output"].cpu()).abs().max())
+        raise AssertionError(f"suite path: CUDA wavefront init differs from the CPU's ({diff})")
+
+    solver, base = solves[0][1]["solver"], solves[0][1]["result"]
+    init_states, oracle = inits[0][1]["states"], inits[0][1]["oracle"]
+    held = hold_path_kernels("suite path", solver, base.state, oracle, seed + 12)
+    g = torch.Generator(device=device).manual_seed(seed + 13)
+    u = torch.rand((batch, solver.config.init_collision_points, 3), generator=g, device=device)
+    points = uniform_box_points(u, init_states.bounds, with_angle=True)
+    held["max_abs_err"]["field_grad_pretraining"] = hold_field_grad(
+        "suite pretraining", init_states.field_params, points, solver.oracle_fn(oracle, points),
+        solver.config.onf)
+    held["shapes"]["field_grad_pretraining"] = list(points.shape)
+
+    feasible = float(result.feasible.mean())
+    base_iterations = base.iterations.float()
+    solve_s = solves[0][0]
+
+    def total(calls) -> float:
+        return sum(seconds for seconds, _ in calls)
+
+    metrics = {
+        "suite": "corridor", **SUITE_WORLDS, **SUITE_SOLVE, "batch": batch, "seed": seed,
+        "seconds": {
+            "wall": build_s + suite_s, "scenario_build": build_s,
+            "run_grid_suite": suite_s, "suite_wall_time": result.wall_time,
+            "wavefront_init": total(probe.parts("wavefront")),
+            "init": inits[0][0], "solve": solve_s,
+            "shortcut": shortcuts[0][0] if shortcuts else 0.0,
+            "restart": total(inits[1:] + solves[1:] + shortcuts[1:]),
+            "evaluation": total(probe.parts("evaluation")),
+        },
+        "feasible": {
+            "solve": float(base.feasible.float().mean()),
+            "after_shortcut": float(np.mean(shortcuts[0][1]["feasible"])) if shortcuts else None,
+            "after_restarts": feasible,
+        },
+        "feasible_count": int(result.feasible.sum()),
+        "repaired_by_shortcut": result.repaired_by_shortcut,
+        "restart_rounds_used": result.restart_rounds_used,
+        "restart_lanes": [info["batch"] for _, info in inits[1:]],
+        "steps_run": steps_run,
+        "iterations_mean": float(np.mean(result.iterations)),
+        "iterations_median": float(np.median(result.iterations)),
+        "solve_iterations_mean": float(base_iterations.mean()),
+        # per iteration a problem actually ran in the base solve (phase 7's metric)
+        "us_per_iteration_per_problem": per_problem_us(solve_s, float(base_iterations.mean()),
+                                                       batch),
+        "mean_length_feasible": (float(result.lengths[result.feasible].mean())
+                                 if feasible > 0 else None),
+        "evaluator": result.log.settings["evaluator"],
+        "start_or_goal_invalid": int((result.start_invalid | result.goal_invalid).sum()),
+        "wavefront_cuda_equals_cpu": True,
+        "launches": {name: launches[name] for name in MAIN_PATH},
+        "kernels_held": held,
+    }
+    if feasible < 0.98:
+        raise AssertionError(f"suite path: feasible fraction {feasible} below the 0.98 floor")
+    return metrics, launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of weights, data and noise")
@@ -1528,6 +1812,12 @@ def main() -> int:
     print(json.dumps({"planner_api": {**api, "card": card}}), flush=True)
     checkpoint = checkpoint_round_trip(*resumable)
     print(json.dumps({"checkpoint": {**checkpoint, "card": card}}), flush=True)
+
+    # 10. benchmark suite (run_grid_suite), f32: its launches join the f32 kernels' counts
+    suite, suite_launches = suite_solve(device, args.seed)
+    print(json.dumps({"suite_path": {**suite, "card": card}}), flush=True)
+    for name in MAIN_PATH:
+        launches[name] += suite_launches[name]
 
     entries = []
     for name, res in kernel_results.items():

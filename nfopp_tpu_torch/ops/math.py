@@ -41,13 +41,16 @@ def sinc(x: torch.Tensor, epsilon: float = 1e-4) -> torch.Tensor:
 
 def linspace(start: torch.Tensor, stop: torch.Tensor, num: int) -> torch.Tensor:
     """[B] endpoints -> [B, num], with jnp.linspace's arithmetic
-    (start * (1 - s) + stop * s, s = i / (num - 1) in f32, exact endpoint)."""
+    (start * (1 - s) + stop * s, s = i / (num - 1) in f32, exact endpoint).
+    s is divided on the CPU: CUDA's division by a scalar multiplies by its
+    reciprocal, which can round differently, so s is the same on every
+    device."""
     start = torch.as_tensor(start, dtype=torch.float32)
     stop = torch.as_tensor(stop, dtype=torch.float32, device=start.device)
     if num == 1:
         return start[..., None]
     div = num - 1
-    step = torch.arange(div, dtype=torch.float32, device=start.device) / div
+    step = (torch.arange(div, dtype=torch.float32) / div).to(start.device)
     out = start[..., None] * (1 - step) + stop[..., None] * step
     return torch.cat([out, stop[..., None]], dim=-1)
 

@@ -57,6 +57,16 @@ RUN_PLANNER_PARAMS = dict(
 )
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Long loops of small tensor ops: one intra-op thread, so that test
+    workers sharing the cores do not spin against each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def oracle(env):
     pts, mask = pad_obstacle_points(env.obstacle_points.astype(np.float32), 32)
     return CircleOracle(torch.tensor(pts)[None], torch.tensor(mask)[None], torch.tensor([0.3]),

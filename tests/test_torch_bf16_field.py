@@ -33,6 +33,16 @@ B, M = 2, 53
 CAST_WEIGHTS = [("encoding", "w"), ("mlp1", "w"), ("mlp2", "w"), ("out", "w")]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Long loops of small tensor ops: one intra-op thread, so that test
+    workers sharing the cores do not spin against each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(autouse=True)
 def no_launches():
     """On CPU tensors no wrapper may count a kernel launch."""

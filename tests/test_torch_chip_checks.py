@@ -19,6 +19,16 @@ POINT, UNIT = 7, 13
 GRAD_TOLS = (2e-4, 2e-5)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Long loops of small tensor ops: one intra-op thread, so that test
+    workers sharing the cores do not spin against each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def one(params, x, i=0):
     return tree_map(lambda t: t[i:i + 1].double(), params), x[i:i + 1].double()
 
@@ -79,6 +89,38 @@ def test_hold_rejects_an_error_a_kink_does_not_explain(kinked, problem):
     got[2][problem, 3, 5] += 1e-3  # one element of mlp1's weight gradient
     with pytest.raises(AssertionError, match=f"problem {problem} misses its bound"):
         hold_grads(kinked, got)
+
+
+@pytest.mark.parametrize("kernel_off,passes", [(0.5, True), (-0.9, True), (1.5, False)])
+def test_hold_accepts_a_kernel_no_farther_from_f64_than_the_plain_version(kinked, kernel_off,
+                                                                          passes):
+    """A badly conditioned problem: the plain version sits 2e-3 from the
+    f64 recomputation in one gradient element, past every bound, and nearer
+    on every other problem. A kernel closer to it (on either side) passes;
+    one farther off than the plain version on any problem does not."""
+    config, params, x, truth = kinked[:4]
+    exact = cs.field_grad_f64(truth, config)(*one(params, x, 1), 1, ())
+    want = [w.clone() for w in kinked[5]]
+    for leaf, f in zip(want, exact):
+        leaf[1] = f[0].float()
+    got = [w.clone() for w in want]
+    want[2][1, 3, 5] += 2e-3
+    got[2][1, 3, 5] += kernel_off * 2e-3
+    if passes:
+        assert hold_grads((*kinked[:5], want), got) == pytest.approx(
+            abs(1.0 - kernel_off) * 2e-3, rel=1e-3)
+    else:
+        with pytest.raises(AssertionError, match="farther from the f64 recomputation"):
+            hold_grads((*kinked[:5], want), got)
+
+
+def test_collision_sums_f64_is_the_plain_collision_forward(kinked):
+    config, params, x = kinked[:3]
+    mult = torch.rand(B, M, generator=torch.Generator().manual_seed(3))
+    a, b = kernels.collision_terms_plain(params, x, mult, config, 10.0)
+    sums = cs.collision_sums_f64(mult, config, 10.0)(*one(params, x, 2), 2, ())[0]
+    torch.testing.assert_close(sums.float(), torch.stack([a, b], dim=1)[2:3], rtol=1e-5,
+                               atol=1e-5)
 
 
 def test_hold_accepts_a_flipped_unit_in_the_collision_gradients(kinked):

@@ -31,7 +31,8 @@ def test_importing_the_port_loads_no_jax():
 
 
 def test_no_jax_import_statements():
-    files = sorted((ROOT / "nfopp_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "nfopp_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "scripts" / "run_benchmark_torch.py"]
     assert len(files) > 20
     for path in files:
         match = FORBIDDEN.search(path.read_text())
@@ -49,10 +50,16 @@ def test_no_jax_import_statements():
     "nfopp_tpu_torch.solver.checkpoint",
     "nfopp_tpu_torch.utils.config",
     "nfopp_tpu_torch.worlds.oracle",
+    "nfopp_tpu_torch.worlds.scenarios",
+    "nfopp_tpu_torch.astar",
+    "nfopp_tpu_torch.parallel",
+    "nfopp_tpu_torch.bench",
+    "nfopp_tpu_torch.bench.runner",
 ])
 def test_the_batch_path_modules_load_no_jax(module):
-    """The bf16 batch path's modules and the tracked, grouped, holonomic and
-    API modules, each imported alone."""
+    """The bf16 batch path's modules, the tracked, grouped, holonomic and
+    API modules, and the benchmark suite's subpackages, each imported alone
+    (the suite's runner also pulls in the shortcut and the host math)."""
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {str(ROOT)!r})\n"

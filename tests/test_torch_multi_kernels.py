@@ -47,6 +47,16 @@ LOSS_TOLS = (1e-5, 1e-6)  # tests/test_field_grad_fused.py:33-46
 GRAD_TOLS = (2e-4, 2e-5)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Long loops of small tensor ops: one intra-op thread, so that test
+    workers sharing the cores do not spin against each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(autouse=True)
 def no_launches():
     """On CPU tensors no wrapper may count a kernel launch."""
