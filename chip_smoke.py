@@ -57,6 +57,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
      feasible fraction after the restart round must reach 0.98, and the
      wavefront init on the card must equal its CPU run bit for bit; its
      launches join the f32 kernels' counts in the kernel line.
+ 11. replanning services (nfopp_tpu_torch.service, through the three driver
+     scripts' functions), each f32 kernel (bf16 in f) launched once per step
+     run: (a) the dynamic demo's host loop, 40 ticks of WorldState ->
+     ReplanningService with a 0.08 s budget, clear of the true disc, each
+     raw path from the pose it was fed to the goal; (b) fleet_replan_session
+     in the users' serving shape (256 robots, 2 sub-fleets of 128 with one
+     shared field each, 20-step bursts, 2 goals x 25 cycles), replicas
+     bit-identical, goals exact, final plans >= 0.98 feasible; (c) 16 robots
+     in 2 sub-fleets against two independent sessions at
+     tests/test_session.py's tolerances; (d) replan_session of one robot,
+     2 goals x 10 cycles x 40 steps, endpoints pinned; (e) the dynamic
+     sessions, one robot for 30 cycles and 16 staggered robots for 60,
+     clear of the true disc; (f) the refilling bf16 anytime server, B=256,
+     12 chunks of 50 steps, more than one completed solve and a pool that
+     did not run dry; (g) the online FleetReplanningService, 256 robots with
+     one shared field per 128, 20-step chunks within a 0.1 s budget, a
+     warm-up and 4 cycles, replicas bit-identical, a finite path for every
+     robot. After (b), (d), (e), (f) and (g) every kernel is held on the
+     path's own inputs, (b) and (g) on 128 robots.
 After each solve of phases 7-10 (the tracked and grouped paths, the holonomic
 path, both planners and the suite), every kernel of that path is held against
 its plain version on the inputs the path's next step gives it, at the path's
@@ -92,6 +111,20 @@ SUITE_WORLDS = {"suite": "corridor", "seeds": 256, "min_geodesic": 120.0}
 SUITE_SOLVE = {"footprint_radius": 1.0, "max_iterations": 1000, "min_iterations": 200,
                "check_freq": 50, "stop_on_plateau": True, "restart_failed": 8,
                "restart_rounds": 1, "shortcut_trials": 128, "require_native_evaluator": True}
+# phase 11, the replanning services: the dynamic demo's host loop (ticks, budget
+# in s), the users' fleet serving shape (256 robots in 2 sub-fleets of 128, one
+# shared field each, 20-step bursts), the sub-fleet schedule check, one robot's
+# session, the dynamic sessions, the bf16 anytime server and the online fleet
+# service in the serving shape (256 robots, one shared field per 128, 20-step
+# chunks within the 0.1 s budget)
+HOST_TICKS, HOST_BUDGET = 40, 0.08
+FLEET = {"robots": 256, "subgroups": 2, "group_size": 128, "steps": 20, "goals": 2, "cycles": 25}
+SUBGROUPS = {"robots": 16, "subgroups": 2, "group_size": 8, "steps": 20, "goals": 2, "cycles": 2}
+SINGLE = {"goals": 2, "cycles": 10, "steps": 40}
+DYNAMIC = {"steps": 20, "cycles": 30, "fleet": 16, "fleet_cycles": 60}
+SERVER = {"batch": 256, "pool_rounds": 3, "chunks": 12}
+FLEET_SERVICE = {"robots": 256, "group_size": 128, "steps_per_chunk": 20, "budget": 0.1,
+                 "cycles": 4}
 DRIFT_STEPS = 100  # steps of the CUDA-vs-CPU drift readout after the checked step
 PROBLEMS_PER_PROGRAM = (1, 2, 4, 8)  # P of the multi-problem kernels; 8 on the batch path
 
@@ -110,6 +143,16 @@ MAX_KINKS = 10
 # flipped (with up to two of the KINK_TOL units), trying the MAX_TIE_FLIPS
 # units nearest zero relative to their reach.
 MAX_TIE_FLIPS = 40
+# A bf16 tie can also sit in an activation itself: a feature, h1 or h2 element
+# whose two f32 values (kernel, plain version) straddle a bf16 rounding boundary
+# is rounded to neighbouring bf16 values, which moves its point's logit by one
+# bf16 ulp of the activation times its weights, and through the point's BCE
+# cotangent every parameter gradient. A bf16 problem no ReLU flip explains is
+# recomputed with one such activation rounded to the other side, trying the
+# MAX_TIE_FLIPS activations nearest a rounding boundary within ROUNDING_TIE_DIST
+# of it (relative): 2^-21 is 4 to 8 f32 ulps of summation-order difference (the
+# tie seen on the card sat 9.3e-9, under one ulp, from its boundary).
+ROUNDING_TIE_DIST = 2.0 ** -21
 
 # bf16 outputs. Kernel and plain version round at the same places, so they
 # agree at the f32 bounds except where one product's two f32 sums, taken in
@@ -287,6 +330,20 @@ def pallas_mm(a, w):
     return PallasMM.apply(a, w)
 
 
+def bf16_other_side(a):
+    """Elementwise, for values `a`: the bf16 value on the other side of the
+    rounding boundary nearest a's own bf16 rounding, and a's distance from
+    that boundary relative to |a| (inf where a is a bf16 value)."""
+    import torch
+
+    r = bf16_round(a)
+    bits = r.to(torch.bfloat16).view(torch.int16).to(torch.int32)
+    step = torch.where((a > r) == (r > 0), 1, -1)  # one bf16 ulp towards a
+    other = (bits + step).to(torch.int16).view(torch.bfloat16).to(a.dtype)
+    dist = (a - (r + other) / 2).abs() / a.abs()
+    return other, torch.where(a == r, torch.inf, dist)
+
+
 def masked_forward(params, x, cfg, flips=(), casts=None, record=None):
     """The field's forward pass (models/onf.py's graph, written out again) on
     one problem in whatever dtype its inputs have, with each ReLU's mask taken
@@ -295,15 +352,35 @@ def masked_forward(params, x, cfg, flips=(), casts=None, record=None):
     multi-problem kernels': encoding in full precision, `pallas_mm` for the
     rest) or "apply" (onf_apply's: every product's operands, xy and the
     encoding weights too, cast separately at each use, so that autograd rounds
-    each cotangent where it passes back through a cast). Returns the logits
+    each cotangent where it passes back through a cast). Under "apply",
+    entries ("tie", name, point, unit) of `flips` round that activation
+    (name "feat", "h1" or "h2") to the bf16 value on the other side of its
+    rounding boundary, at every use (`bf16_other_side`). Returns the logits
     [1, M] and the two pre-activations [1, M, hid]; a dict `record` receives
-    each ReLU layer's input and weight under "inputs" and "weights"."""
+    each ReLU layer's input and weight under "inputs" and "weights", and the
+    activations by name under "activations"."""
     import torch
 
     from nfopp_tpu_torch.models import angle_encode
 
-    mm = {None: torch.matmul, "multi": pallas_mm,
-          "apply": lambda a, w: bf16_round(a) @ bf16_round(w)}[casts]
+    ties = [flip[1:] for flip in flips if flip[0] == "tie"]
+    flips = [flip for flip in flips if flip[0] != "tie"]
+
+    def cast_in(a, name):
+        """a rounded to bf16, across the boundary at the ties of `name`."""
+        r = bf16_round(a)
+        for tie_name, point, unit in ties:
+            if tie_name == name:
+                other, _ = bf16_other_side(a[0, point, unit].detach())
+                shift = torch.zeros_like(r)
+                shift[0, point, unit] = other - r[0, point, unit].detach()
+                r = r + shift
+        return r
+
+    def mm(a, w, name=None):
+        if casts == "apply":
+            return cast_in(a, name) @ bf16_round(w)
+        return {None: torch.matmul, "multi": pallas_mm}[casts](a, w)
     f = cfg.fourier_features
     xy = (x[..., :2] - cfg.mean) / cfg.sigma
     enc = mm(xy, params["encoding"]["w"]) if casts == "apply" else xy @ params["encoding"]["w"]
@@ -318,18 +395,26 @@ def masked_forward(params, x, cfg, flips=(), casts=None, record=None):
     h, pre = feats, []
     if record is not None:
         record["inputs"], record["weights"] = [], []
-    for layer, name in enumerate(("mlp1", "mlp2")):
+        record["activations"] = {"feat": feats.detach()}
+    for layer, (name, act) in enumerate((("mlp1", "feat"), ("mlp2", "h1"))):
         if record is not None:
             record["inputs"].append(h.detach())
             record["weights"].append(params[name]["w"].detach())
-        z = mm(h, params[name]["w"]) + params[name]["b"][:, None]
+        z = mm(h, params[name]["w"], act) + params[name]["b"][:, None]
         mask = z.detach() > 0
         for flip_layer, point, unit in flips:
             if flip_layer == layer:
                 mask[0, point, unit] = ~mask[0, point, unit]
         pre.append(z.detach())
         h = z * mask
-    logits = mm(torch.cat([h, feats], dim=-1), params["out"]["w"]) + params["out"]["b"][:, None]
+        if record is not None:
+            record["activations"][f"h{layer + 1}"] = h.detach()
+    if casts == "apply":  # each part's rounding, with its ties
+        logits = (torch.cat([cast_in(h, "h2"), cast_in(feats, "feat")], dim=-1)
+                  @ bf16_round(params["out"]["w"]))
+    else:
+        logits = mm(torch.cat([h, feats], dim=-1), params["out"]["w"])
+    logits = logits + params["out"]["b"][:, None]
     return logits[..., 0], pre
 
 
@@ -347,11 +432,25 @@ def tie_reach_units(pre, record, near) -> list:
     return [unit for _, unit in ranked[:MAX_TIE_FLIPS] if unit not in near]
 
 
+def rounding_ties(record) -> list:
+    """Activations ("tie", name, point, unit) within ROUNDING_TIE_DIST of a
+    bf16 rounding boundary (`bf16_other_side`), nearest first; at most
+    MAX_TIE_FLIPS."""
+    ranked = []
+    for name, a in record["activations"].items():
+        _, dist = bf16_other_side(a[0])
+        for point, unit in (dist < ROUNDING_TIE_DIST).nonzero().tolist():
+            ranked.append((float(dist[point, unit]), ("tie", name, point, unit)))
+    ranked.sort()
+    return [tie for _, tie in ranked[:MAX_TIE_FLIPS]]
+
+
 def explain_by_kinks(name, i, got, tols, params, points, cfg, recompute, bf16=False) -> list:
     """The flips (layer, point, unit) under which problem i's f64
     recomputation meets the bounds `tols` against the kernel's outputs `got`;
     raises if no choice of sides for its near-zero ReLU units does (under
-    bf16, nor one unit within a tie's reach, `tie_reach_units`)."""
+    bf16, nor one unit within a tie's reach, `tie_reach_units`, nor one
+    activation rounded across its bf16 rounding boundary, `rounding_ties`)."""
     from nfopp_tpu_torch.utils.tree import tree_map
 
     p = tree_map(lambda t: t[i:i + 1].detach().double(), params)
@@ -374,7 +473,8 @@ def explain_by_kinks(name, i, got, tols, params, points, cfg, recompute, bf16=Fa
             if meets(flips):
                 return list(flips)
     tied = tie_reach_units(pre, record, near) if bf16 else []
-    for unit in tied:
+    rounded = rounding_ties(record) if bf16 and recompute.casts == "apply" else []
+    for unit in tied + rounded:
         for k in range(min(len(near), 2) + 1):
             for flips in itertools.combinations(near, k):
                 if meets(flips + (unit,)):
@@ -382,7 +482,9 @@ def explain_by_kinks(name, i, got, tols, params, points, cfg, recompute, bf16=Fa
     raise AssertionError(
         f"{name}: problem {i} misses its bound, and no choice of sides for its "
         f"{len(near)} ReLU unit(s) within {KINK_TOL} of zero explains it: {near}"
-        + (f", nor one of the {len(tied)} within a bf16 tie's reach" if bf16 else ""))
+        + (f", nor one of the {len(tied)} within a bf16 tie's reach, nor one of the "
+           f"{len(rounded)} activations within a tie of a bf16 rounding boundary"
+           if bf16 else ""))
 
 
 def f64_distances(i, got, want, kinks) -> tuple[list, list]:
@@ -414,7 +516,9 @@ def hold(name, got, want, tols, kinks=None, bf16=False) -> float:
     KINK_TOL of zero under which the f64 recomputation meets the same bounds;
     each such problem is logged. Under bf16 the flips found may be none: the
     plain version, not the kernel, sat on the far side of a bf16 rounding; or
-    one of them a unit within a bf16 tie's reach (`tie_reach_units`). A
+    one of them a unit within a bf16 tie's reach (`tie_reach_units`), or, under
+    onf_apply's casts, an activation within a tie of a bf16 rounding boundary
+    rounded to its other side (`rounding_ties`). A
     problem no flips explain passes only if, output by output, the kernel is
     no farther from its f64 recomputation than the plain version is from its
     own on the batch's problem where the plain version is farthest
@@ -445,7 +549,9 @@ def hold(name, got, want, tols, kinks=None, bf16=False) -> float:
             continue
         if flips:
             log(f"  {name}: problem {i} (largest difference {err:.3g}) matches an f64 "
-                f"recomputation with ReLU sides flipped at (layer, point, unit) {flips}")
+                f"recomputation with ReLU sides flipped at (layer, point, unit), or "
+                f"activations rounded across a bf16 boundary at (\"tie\", name, point, "
+                f"unit): {flips}")
         else:  # the plain version, not the kernel, took the far side of a rounding
             log(f"  {name}: problem {i} (largest difference {err:.3g}) matches an f64 "
                 "recomputation with no ReLU side flipped")
@@ -1125,13 +1231,15 @@ def solve(device, seed: int, batch: int, steps: int, path: tuple):
     return metrics, launches
 
 
-def check_launches(launches: dict, path: tuple, steps: int, what: str) -> None:
-    """Each kernel of `path` launched once per step (`steps` times), every
-    other kernel never."""
+def check_launches(launches: dict, path: tuple, steps: int, what: str,
+                   extra: dict | None = None) -> None:
+    """Each kernel of `path` launched once per step (`steps` times) and
+    extra[name] times more (pretraining), every other kernel never."""
+    extra = extra or {}
     for name, count in launches.items():
-        if count != (steps if name in path else 0):
+        if count != (steps + extra.get(name, 0) if name in path else 0):
             raise AssertionError(f"kernel {name} launched {count} times in {steps} steps of "
-                                 f"{what} (path {path})")
+                                 f"{what} (path {path}, besides {extra})")
 
 
 def check_finite_paths(paths, shape: tuple, what: str) -> None:
@@ -1536,13 +1644,12 @@ def checkpoint_round_trip(solver, state, oracle, g) -> dict:
             "resumed_bit_identical": True}
 
 
-def bench_script():
-    """scripts/run_benchmark_torch.py as a module: the suite's world generator
-    and planner parameters, as its users run them."""
+def load_script(name: str):
+    """scripts/<name>.py as a module: a script's scene, parameters and loops,
+    as its users run them."""
     import importlib.util
 
-    spec = importlib.util.spec_from_file_location(
-        "run_benchmark_torch", ROOT / "scripts" / "run_benchmark_torch.py")
+    spec = importlib.util.spec_from_file_location(name, ROOT / "scripts" / f"{name}.py")
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
@@ -1623,7 +1730,7 @@ def suite_solve(device, seed: int) -> tuple[dict, dict]:
     from nfopp_tpu_torch.bench import runner
     from nfopp_tpu_torch.ops.sampling import uniform_box_points
 
-    script = bench_script()
+    script = load_script("run_benchmark_torch")
     parameters = script.bench_parameters()
     t0 = time.perf_counter()
     scenarios = script.build_scenarios(_argparse.Namespace(**SUITE_WORLDS))
@@ -1725,6 +1832,284 @@ def suite_solve(device, seed: int) -> tuple[dict, dict]:
     return metrics, launches
 
 
+def host_service(device, seed: int) -> tuple[dict, dict]:
+    """Phase 11a: the dynamic demo's host loop (scripts/dynamic_replan_demo_torch.py)
+    for HOST_TICKS ticks: WorldState's sensor points of the oscillating disc
+    -> update_world, update_robot_pose -> replan_cycle within HOST_BUDGET s
+    with a PathPostprocessor. Holds the executed poses clear of the true
+    disc, finite paths, each raw planner path starting at the pose it was
+    fed and ending at the goal, and each f32 kernel launched once per step
+    run (the field-gradient kernel also once per pretraining iteration)."""
+    import numpy as np
+
+    from nfopp_tpu_torch import kernels
+
+    demo = load_script("dynamic_replan_demo_torch")
+    kernels.reset_launches()
+    result, traces = demo.host_loop(HOST_TICKS, 0.1, 0.35, HOST_BUDGET, device, seed)
+    launches = dict(kernels.LAUNCHES)
+    steps = sum(traces["steps"])
+    pretraining = int(demo.demo_parameters().planner.init_collision_iteration)
+    check_launches(launches, MAIN_PATH, steps, "the host service", {"field_grad": pretraining})
+    if result["collided"] or result["min_clearance"] < demo.ROBOT_CLEAR:
+        raise AssertionError(f"host service: clearance {result['min_clearance']} below the "
+                             f"robot's radius {demo.ROBOT_CLEAR}")
+    for fed, raw, path in zip(traces["fed"], traces["raw"], traces["path"]):
+        if not (np.isfinite(raw).all() and np.isfinite(path).all()):
+            raise AssertionError("host service: a non-finite path")
+        if not (np.allclose(raw[0], fed, atol=1e-5)
+                and np.allclose(raw[-1], demo.GOAL, atol=1e-6)):
+            raise AssertionError(f"host service: a path from {raw[0]} to {raw[-1]}, fed {fed}")
+    steps_per_cycle = np.asarray(traces["steps"], float)
+    return {**result, "ticks": HOST_TICKS, "steps_run": steps,
+            "steps_per_cycle": {"mean": float(steps_per_cycle.mean()),
+                                "min": int(steps_per_cycle.min()),
+                                "max": int(steps_per_cycle.max())},
+            "launches": {name: launches[name] for name in MAIN_PATH}}, launches
+
+
+def fleet_session(device, seed: int) -> tuple[dict, dict]:
+    """Phase 11b: fleet_replan_session in the users' serving shape (FLEET:
+    256 robots as 2 sub-fleets of 128 with one shared field each, 20 steps
+    per cycle, 2 goal rounds x 25 cycles) on the car scene, f32. Holds each
+    f32 kernel once per step of each sub-fleet burst, every group's replicas
+    bit-identical, the goals exactly the last goal row, and the final plans'
+    feasible fraction >= 0.98; then every kernel on one sub-fleet's inputs."""
+    import numpy as np
+    import torch
+
+    from nfopp_tpu_torch import kernels
+    from nfopp_tpu_torch.utils.tree import tree_rows
+
+    latency = load_script("replan_latency_torch")
+    f = FLEET
+    solver, oracle, env = latency.car_setup(device)
+    states = latency.fleet_states(solver, oracle, env, f["robots"], f["group_size"], seed)
+    check_replicas((states.field_params, states.field_opt_state), f["group_size"])
+    rows = latency.goal_rows(env, f["robots"], f["goals"])
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    seconds, final, aux = latency.run_session(solver, oracle, states, rows, f["cycles"],
+                                              f["steps"], f["group_size"], f["subgroups"],
+                                              seed + 1)
+    launches = dict(kernels.LAUNCHES)
+    cycles = f["goals"] * f["cycles"]
+    check_launches(launches, MAIN_PATH, cycles * f["subgroups"] * f["steps"], "the fleet session")
+    check_replicas((final.field_params, final.field_opt_state), f["group_size"])
+    if not np.array_equal(final.goal.cpu().numpy(), rows[-1]):
+        raise AssertionError("fleet session: the goals are not the last goal row")
+    check_finite_paths(solver.full_trajectory(final),
+                       (f["robots"], solver.config.trajectory_length + 2, 3), "fleet session")
+    if not torch.isfinite(aux.path_length).all():
+        raise AssertionError("fleet session: non-finite path lengths")
+    quality = latency.fleet_quality(solver, oracle, final)
+    sub = f["robots"] // f["subgroups"]
+    held = hold_path_kernels("fleet session", solver, tree_rows(final, 0, sub), oracle, seed + 14)
+    per_cycle_ms = seconds / cycles * 1e3
+    metrics = {**f, "compute_dtype": "float32", "seconds": seconds, "per_cycle_ms": per_cycle_ms,
+               "per_burst_step_ms": seconds / (cycles * f["subgroups"] * f["steps"]) * 1e3,
+               "robot_replans_per_s": f["robots"] / (per_cycle_ms * 1e-3),
+               **quality, "replicas_bit_identical": True, "kernels_held": held}
+    if quality["final_plans_feasible_frac"] < 0.98:
+        raise AssertionError(f"fleet session: feasible fraction "
+                             f"{quality['final_plans_feasible_frac']} below the 0.98 floor")
+    return metrics, launches
+
+
+def subgroups_schedule(device, seed: int) -> dict:
+    """Phase 11c: fleet_replan_session(subgroups=2) (SUBGROUPS) against two
+    independent sessions of its sub-fleets, each with its sub-fleet's noise
+    source, with tests/test_session.py:118-160's tolerances: trajectories
+    atol 5e-3, goals exact, starts atol 1e-5, path lengths rtol 1e-3.
+    Whether the bits are equal is printed, not held."""
+    import torch
+
+    from nfopp_tpu_torch import kernels
+    from nfopp_tpu_torch.utils.tree import tree_leaves, tree_rows
+
+    latency = load_script("replan_latency_torch")
+    f = SUBGROUPS
+    solver, oracle, env = latency.car_setup(device)
+    states = latency.fleet_states(solver, oracle, env, f["robots"], f["group_size"], seed)
+    rows = latency.goal_rows(env, f["robots"], f["goals"])
+    kernels.reset_launches()
+    _, out, aux = latency.run_session(solver, oracle, states, rows, f["cycles"], f["steps"],
+                                      f["group_size"], f["subgroups"], seed + 1)
+    check_launches(dict(kernels.LAUNCHES), MAIN_PATH,
+                   f["goals"] * f["cycles"] * f["subgroups"] * f["steps"], "the subgrouped session")
+    sub = f["robots"] // f["subgroups"]
+    bits, worst = True, {"trajectory": 0.0, "start": 0.0, "path_length_rel": 0.0}
+    for s in range(f["subgroups"]):
+        lo, hi = s * sub, (s + 1) * sub
+        # subfleet_generators(seed + 1, S)[s] is seeded (seed + 1) * S + s
+        _, ref, ref_aux = latency.run_session(
+            solver, oracle, tree_rows(states, lo, hi), rows[:, lo:hi], f["cycles"], f["steps"],
+            f["group_size"], 1, (seed + 1) * f["subgroups"] + s)
+        got = tree_rows(out, lo, hi)
+        bits &= all(torch.equal(a, b) for a, b in zip(tree_leaves(got), tree_leaves(ref)))
+        bits &= torch.equal(aux.path_length[:, :, lo:hi], ref_aux.path_length)
+        worst["trajectory"] = max(worst["trajectory"],
+                                  float((got.trajectory - ref.trajectory).abs().max()))
+        worst["start"] = max(worst["start"], float((got.start - ref.start).abs().max()))
+        rel = ((aux.path_length[:, :, lo:hi] - ref_aux.path_length).abs()
+               / ref_aux.path_length.abs())
+        worst["path_length_rel"] = max(worst["path_length_rel"], float(rel.max()))
+        if not torch.equal(got.goal, ref.goal):
+            raise AssertionError("subgroups: the goals differ from the independent session's")
+    if worst["trajectory"] > 5e-3 or worst["start"] > 1e-5 or worst["path_length_rel"] > 1e-3:
+        raise AssertionError(f"subgroups: sub-fleets differ from independent sessions: {worst}")
+    return {**f, "bits_equal": bool(bits), "max_differences": worst,
+            "goals_equal": True}
+
+
+def single_session(device, seed: int) -> tuple[dict, dict]:
+    """Phase 11d: replan_session of one robot on the car scene, f32 (SINGLE:
+    2 goals x 10 cycles x 40 steps). Holds each f32 kernel once per step,
+    the goal exactly the last goal, a finite final path with pinned
+    endpoints; then every kernel on the robot's inputs."""
+    import numpy as np
+    import torch
+
+    from nfopp_tpu_torch import kernels
+
+    latency = load_script("replan_latency_torch")
+    f = SINGLE
+    solver, oracle, env = latency.car_setup(device)
+    state = latency.fleet_states(solver, oracle, env, 1, 1, seed)
+    rows = latency.goal_rows(env, 1, f["goals"])
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    seconds, final, aux = latency.run_session(solver, oracle, state, rows, f["cycles"],
+                                              f["steps"], 1, 1, seed + 1)
+    launches = dict(kernels.LAUNCHES)
+    cycles = f["goals"] * f["cycles"]
+    check_launches(launches, MAIN_PATH, cycles * f["steps"], "the single session")
+    path = solver.full_trajectory(final)
+    check_finite_paths(path, (1, solver.config.trajectory_length + 2, 3), "single session")
+    path = path[0].cpu().numpy()
+    if not np.array_equal(final.goal[0].cpu().numpy(), rows[-1, 0]):
+        raise AssertionError("single session: the goal is not the last goal")
+    if not (np.array_equal(path[-1], rows[-1, 0])
+            and np.array_equal(path[0], final.start[0].cpu().numpy())):
+        raise AssertionError("single session: the path's endpoints are not pinned")
+    if not torch.isfinite(aux.path_length).all():
+        raise AssertionError("single session: non-finite path lengths")
+    held = hold_path_kernels("single session", solver, final, oracle, seed + 15)
+    return {**f, "compute_dtype": "float32", "seconds": seconds,
+            "per_cycle_ms": seconds / cycles * 1e3,
+            **latency.fleet_quality(solver, oracle, final), "kernels_held": held}, launches
+
+
+def dynamic_sessions(device, seed: int) -> tuple[dict, dict]:
+    """Phase 11e: dynamic_replan_session of one robot and fleet_dynamic_session
+    of DYNAMIC["fleet"] robots on staggered lanes (one shared field) against
+    the dynamic demo's oscillating disc, DEFAULT_PARAMETERS' field with 100
+    pretraining iterations, circle oracle, 20 steps per cycle. Holds each
+    f32 kernel once per step of each session and every active robot's
+    executed poses clear of the true disc; then every kernel on each
+    session's last inputs."""
+    import torch
+
+    from nfopp_tpu_torch import kernels
+    from nfopp_tpu_torch.solver import ConstrainedSolver, config_from_parameters
+    from nfopp_tpu_torch.worlds import circle_collision
+
+    demo = load_script("dynamic_replan_demo_torch")
+    f = DYNAMIC
+    solver = ConstrainedSolver(config_from_parameters(demo.demo_parameters()), circle_collision,
+                               device=device)
+    step_dist = 0.35 * 0.1
+    out, launches = {}, {}
+    for what, (starts, goals), cycles in (
+            ("single", (demo.START[None], demo.GOAL[None]), f["cycles"]),
+            ("fleet", demo.fleet_lanes(f["fleet"]), f["fleet_cycles"])):
+        builder, xs = demo.session_world(cycles, 0.1, 0.0, device)
+        states = demo.session_states(solver, builder, xs[0], starts, goals, seed)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        seconds, final, aux = demo.run_session(solver, states, builder, xs, goals, f["steps"],
+                                               step_dist, seed + 1)
+        counted = dict(kernels.LAUNCHES)
+        check_launches(counted, MAIN_PATH, cycles * f["steps"], f"the dynamic session ({what})")
+        for name in MAIN_PATH:
+            launches[name] = launches.get(name, 0) + counted[name]
+        check = demo.session_check(aux, 0.1)
+        if check["collided"]:
+            raise AssertionError(f"dynamic session ({what}): an executed pose within the robot's "
+                                 f"radius of the true disc ({check['min_clearance_while_active']})")
+        if not torch.isfinite(aux.plan).all():
+            raise AssertionError(f"dynamic session ({what}): a non-finite plan")
+        held = hold_path_kernels(f"dynamic session ({what})", solver, final, builder(xs[-1]),
+                                 seed + 16)
+        out[what] = {"robots": len(goals), "cycles": cycles, "steps_per_cycle": f["steps"],
+                     "seconds": seconds, "per_cycle_ms": seconds / cycles * 1e3, **check,
+                     "kernels_held": held}
+    return out, launches
+
+
+def anytime_server(device, seed: int) -> tuple[dict, dict]:
+    """Phase 11f: the refilling bf16 batch server of
+    scripts/anytime_server_torch.py (SERVER: B=256, a pool of 3 x 256, 12
+    chunks of 50 steps). Holds each bf16 kernel once per step run, more
+    than one completed solve and a pool that did not run dry (so the rate
+    is a sustained one); then every kernel on the lanes' inputs."""
+    from nfopp_tpu_torch import kernels
+
+    f = SERVER
+    script = load_script("anytime_server_torch")
+    server = script.Server(f["batch"], f["pool_rounds"], seed, device)
+    kernels.reset_launches()
+    result = script.serve(server, f["chunks"])
+    launches = dict(kernels.LAUNCHES)
+    check_launches(launches, MAIN_PATH_BF16, f["chunks"] * server.check_freq, "the anytime server")
+    if result["completed_solves"] <= 0:
+        raise AssertionError("anytime server: no solve completed")
+    if result["pool_exhausted"]:
+        raise AssertionError(f"anytime server: {result['warning']}")
+    held = hold_path_kernels("anytime server", server.solver, server.states, server.oracle,
+                             seed + 17)
+    return {**result, "pool_rounds": f["pool_rounds"], "kernels_held": held}, launches
+
+
+def fleet_service(device, seed: int) -> tuple[dict, dict]:
+    """Phase 11g: the online fleet node, FleetReplanningService, through
+    scripts/replan_latency_torch.py's host fleet loop (FLEET_SERVICE: 256
+    robots on the car scene, f32, one shared field per 128, 20-step chunks
+    within a 0.1 s budget, a warm-up and 4 timed cycles; between cycles each
+    robot follows its plan). Holds each f32 kernel once per step run, every
+    group's replicas bit-identical, and a finite path for every active
+    robot; then every kernel on one group's inputs."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from nfopp_tpu_torch import kernels
+    from nfopp_tpu_torch.utils.tree import tree_rows
+
+    latency = load_script("replan_latency_torch")
+    f = FLEET_SERVICE
+    solver, oracle, env = latency.car_setup(device)
+    args = SimpleNamespace(fleet=f["robots"], group_size=f["group_size"], timeout=f["budget"],
+                           steps_per_chunk=f["steps_per_chunk"], cycles=f["cycles"], seed=seed)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    result, svc, paths = latency.host_fleet(args, solver, oracle, env)
+    launches = dict(kernels.LAUNCHES)
+    check_launches(launches, MAIN_PATH, result["steps_run"], "the fleet service",
+                   {"field_grad": solver.config.init_collision_iteration})
+    check_replicas((svc._states.field_params, svc._states.field_opt_state), f["group_size"])
+    if sorted(paths) != list(range(f["robots"])):
+        raise AssertionError(f"fleet service: paths for {len(paths)} of {f['robots']} robots")
+    if not all(p.ndim == 2 and p.shape[1] == 3 and np.isfinite(p).all() for p in paths.values()):
+        raise AssertionError("fleet service: a non-finite or malformed path")
+    held = hold_path_kernels("fleet service", solver, tree_rows(svc._states, 0, f["group_size"]),
+                             oracle, seed + 18)
+    return {**result, "group_size": f["group_size"], "steps_per_chunk": f["steps_per_chunk"],
+            "compute_dtype": "float32", "replicas_bit_identical": True,
+            "kernels_held": held}, launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of weights, data and noise")
@@ -1740,6 +2125,7 @@ def main() -> int:
     from nfopp_tpu_torch.tools.scene import card_line
 
     # 1. device
+    started = time.perf_counter()
     card = card_line()
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1819,6 +2205,30 @@ def main() -> int:
     for name in MAIN_PATH:
         launches[name] += suite_launches[name]
 
+    # 11. replanning services: their launches join the kernels' counts
+    t0 = time.perf_counter()
+    host, host_launches = host_service(device, args.seed)
+    print(json.dumps({"host_service": {**host, "card": card}}), flush=True)
+    fleet, fleet_launches = fleet_session(device, args.seed)
+    print(json.dumps({"fleet_session": {**fleet, "card": card}}), flush=True)
+    print(json.dumps({"subgroups": {**subgroups_schedule(device, args.seed), "card": card}}),
+          flush=True)
+    single, single_launches = single_session(device, args.seed)
+    print(json.dumps({"single_session": {**single, "card": card}}), flush=True)
+    dynamic, dynamic_launches = dynamic_sessions(device, args.seed)
+    print(json.dumps({"dynamic_sessions": {**dynamic, "card": card}}), flush=True)
+    server, server_launches = anytime_server(device, args.seed)
+    print(json.dumps({"anytime_server": {**server, "card": card}}), flush=True)
+    service, service_launches = fleet_service(device, args.seed)
+    print(json.dumps({"fleet_service": {**service, "card": card}}), flush=True)
+    for counted in (host_launches, fleet_launches, single_launches, dynamic_launches,
+                    service_launches):
+        for name in MAIN_PATH:
+            launches[name] += counted[name]
+    for name in MAIN_PATH_BF16:
+        launches[name] += server_launches[name]
+    log(f"phase 11: {time.perf_counter() - t0:.1f}s")
+
     entries = []
     for name, res in kernel_results.items():
         entries.append({
@@ -1828,6 +2238,7 @@ def main() -> int:
             "bound_by": res["bound_by"], "library_ms": None,
         })
     print(json.dumps({"kernels": entries}), flush=True)
+    log(f"chip_smoke: {time.perf_counter() - started:.1f}s in all")
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,8 +10,11 @@ shared-field group mode (`run_grouped`) and the tracked (anytime) loops of
 `solver.tracking`; `HolonomicSolver` is the 2-D solve; `NFOPPlanner` /
 `PlannerFactory` the stateful planner API; `ExperimentalConstrainedSolver.
 run_batch` is the batch-explicit solve, in f32 or bf16 with the TPU
-multi-problem kernels' casts.
+multi-problem kernels' casts. `service` holds the replanning services
+(`ReplanningService`, `FleetReplanningService`, `WorldState`) and the
+scripted replanning sessions over them.
 """
+from . import service
 from .experimental import ExperimentalConstrainedSolver
 from .models import ONFConfig, init_onf_params, onf_apply, params_from_jax
 from .solver import (
@@ -43,4 +46,5 @@ __all__ = [
     "run_planner_config",
     "run_with_tracking",
     "state_from_jax",
+    "service",
 ]

@@ -3,18 +3,19 @@
 `car_world` builds the batched car/parking scene of `bench.py` (rectangle
 footprint (-0.3, 0.2, -0.3, 0.2), bounds [0, 3]^2); `card_line` is the card's
 name and power limit as `nvidia-smi` gives them; `time_ms` times a call with
-CUDA events.
+CUDA events, `timed` one longer run of host and device work.
 """
 from __future__ import annotations
 
 import subprocess
+import time
 
 import numpy as np
 import torch
 
 from ..worlds import RectangleOracle, car_environment, pad_obstacle_points
 
-__all__ = ["car_world", "card_line", "time_ms"]
+__all__ = ["car_world", "card_line", "time_ms", "timed"]
 
 
 def car_world(batch: int, device):
@@ -56,3 +57,20 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def timed(fn, device) -> tuple[float, object]:
+    """(seconds, fn()): on a CUDA device, CUDA events recorded around the
+    call after a synchronize (the end event waits for the last launch); on
+    the CPU, the host clock."""
+    if torch.device(device).type != "cuda":
+        t0 = time.perf_counter()
+        out = fn()
+        return time.perf_counter() - t0, out
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3, out

@@ -5,7 +5,7 @@ from typing import Any, Callable
 
 import torch
 
-__all__ = ["tree_map", "tree_leaves", "tree_named_leaves", "tree_where"]
+__all__ = ["tree_map", "tree_leaves", "tree_named_leaves", "tree_rows", "tree_where"]
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
@@ -47,6 +47,13 @@ def tree_named_leaves(tree: Any, prefix: str = "") -> list[tuple[str, torch.Tens
         return []
     return [pair for key, x in items
             for pair in tree_named_leaves(x, f"{prefix}/{key}" if prefix else key)]
+
+
+def tree_rows(tree: Any, lo: int, hi: int, batch: int | None = None) -> Any:
+    """Rows lo:hi of every leaf of a batched tree. With `batch`, a leaf whose
+    leading axis is not `batch` long (one world shared by every row) passes
+    through whole."""
+    return tree_map(lambda x: x if batch is not None and x.shape[0] != batch else x[lo:hi], tree)
 
 
 def tree_where(mask: torch.Tensor, a: Any, b: Any) -> Any:

@@ -4,6 +4,7 @@ the other side, and rejects any other miss."""
 import pathlib
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -348,6 +349,10 @@ def test_check_launches_wants_each_path_kernel_once_per_step():
         wrong = dict(launches, **{name: count})
         with pytest.raises(AssertionError, match=f"kernel {name} launched {count} times"):
             cs.check_launches(wrong, path, 150, "a test")
+    # pretraining's launches of the field-gradient kernel come on top
+    cs.check_launches(dict(launches, field_grad=250), path, 150, "a test", {"field_grad": 100})
+    with pytest.raises(AssertionError, match="kernel field_grad launched 150 times"):
+        cs.check_launches(launches, path, 150, "a test", {"field_grad": 100})
 
 
 def test_check_replicas_holds_groups_bit_identical_and_distinct():
@@ -446,3 +451,85 @@ def test_hold_path_kernels_rejects_a_kernel_off_its_plain_version(path_state, wr
         monkeypatch.setattr(kernels, "collision_terms", collision_terms)
     with pytest.raises(AssertionError, match=f"a test {wrong}"):
         cs.hold_path_kernels("a test", solver, state, oracle, 2)
+
+
+def test_bf16_other_side_crosses_the_nearest_rounding_boundary():
+    a = torch.tensor([21.18750019744, -21.18750019744, 1.0, 3.046167612, -0.0142822265625 * 1.0001],
+                     dtype=torch.float64)
+    other, dist = cs.bf16_other_side(a)
+    assert other.tolist()[:2] == [21.125, -21.125]  # 21.1875 is the boundary; rounds to 21.25
+    assert float(dist[0]) == pytest.approx(9.3e-9, rel=1e-2) and float(dist[2]) == float("inf")
+    assert cs.bf16_round(a[3]).item() == 3.046875 and other[3].item() == 3.03125
+    assert all(float(o) != float(cs.bf16_round(v)) for o, v in zip(other, a))
+
+
+def test_masked_forward_rounds_a_tied_activation_across():
+    """("tie", "h2", point, unit) under onf_apply's casts moves that point's
+    logit by exactly the rounding's step times the unit's bf16 output
+    weight, and no other point's."""
+    g = torch.Generator().manual_seed(9)
+    params = init_onf_params(g, BF16, 1, CPU)
+    p, x = one(params, torch.rand(1, M, 3, generator=g) * 3)
+    record = {}
+    base, _ = cs.masked_forward(p, x, BF16, casts="apply", record=record)
+    h2 = record["activations"]["h2"][0, POINT]
+    unit = int(torch.argmax(h2))
+    tied, _ = cs.masked_forward(p, x, BF16, [("tie", "h2", POINT, unit)], casts="apply")
+    other, _ = cs.bf16_other_side(h2[unit])
+    step = float(other - cs.bf16_round(h2[unit]))
+    assert step != 0.0
+    moved = (tied - base)[0]
+    assert float(moved[POINT]) == pytest.approx(
+        step * float(cs.bf16_round(p["out"]["w"][0, unit, 0])), rel=1e-9)
+    assert float(moved.abs().sum() - moved[POINT].abs()) == 0.0
+
+
+def card_problem():
+    """Problem 8 of chip_smoke.py phase 11f's field-gradient hold (the bf16
+    anytime server on an H100): its field, training points and labels, and
+    the kernel's gradients, whose h2 unit 97 at point 206 (f64 value
+    21.1875002, a bf16 rounding boundary at 21.1875) the kernel rounded to
+    21.125 and the plain version to 21.25."""
+    data = np.load(pathlib.Path(__file__).parent / "data" / "field_grad_bf16_tie.npz")
+
+    def tree(prefix):
+        out = {}
+        for key in data.files:
+            if key.startswith(prefix + "/"):
+                *path, leaf = key[len(prefix) + 1:].split("/")
+                node = out
+                for part in path:
+                    node = node.setdefault(part, {})
+                node[leaf] = torch.tensor(data[key])[None]
+        return out
+
+    params = tree("params")
+    return (params, torch.tensor(data["points"])[None], torch.tensor(data["truth"])[None],
+            tree_leaves(tree("kernel")))
+
+
+def test_hold_bf16_explains_the_card_s_activation_tie():
+    """The card's kernel gradients of that problem miss the bf16 bound
+    against the plain version; the f64 recomputation with h2 unit 97 at point
+    206 rounded to the other side matches them, and without the rounding-tie
+    explanation hold rejects them."""
+    from nfopp_tpu_torch.solver import run_planner_config
+
+    config = run_planner_config().onf._replace(compute_dtype="bfloat16")
+    params, x, truth, got = card_problem()
+    want = tree_leaves(kernels.field_grad_plain(params, x, truth, config)[1])
+    tols = [GRAD_TOLS] * len(want)
+    recompute = cs.field_grad_f64(truth, config, "apply")
+    with pytest.raises(AssertionError, match=r"problems \[0\] outside"):
+        cs.hold("no kinks", got, want, tols, bf16=True)
+    assert cs.explain_by_kinks("card", 0, got, tols, params, x, config, recompute,
+                               bf16=True) == [("tie", "h2", 206, 97)]
+    kinks = (params, x, config, recompute)
+    assert cs.hold("card", got, want, tols, kinks=kinks, bf16=True) > 5e-4
+    saved = cs.rounding_ties
+    cs.rounding_ties = lambda record: []
+    try:
+        with pytest.raises(AssertionError, match="farther from the f64 recomputation"):
+            cs.hold("card, no rounding ties", got, want, tols, kinks=kinks, bf16=True)
+    finally:
+        cs.rounding_ties = saved

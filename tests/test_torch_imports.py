@@ -8,6 +8,8 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
+SCRIPTS = ("run_benchmark_torch", "replan_latency_torch", "dynamic_replan_demo_torch",
+           "anytime_server_torch")
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|optax|flax|nfopp_tpu)(\.|\s|$)", re.M)
 
 
@@ -31,8 +33,8 @@ def test_importing_the_port_loads_no_jax():
 
 
 def test_no_jax_import_statements():
-    files = sorted((ROOT / "nfopp_tpu_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "scripts" / "run_benchmark_torch.py"]
+    files = sorted((ROOT / "nfopp_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
+        ROOT / "scripts" / f"{name}.py" for name in SCRIPTS]
     assert len(files) > 20
     for path in files:
         match = FORBIDDEN.search(path.read_text())
@@ -55,15 +57,43 @@ def test_no_jax_import_statements():
     "nfopp_tpu_torch.parallel",
     "nfopp_tpu_torch.bench",
     "nfopp_tpu_torch.bench.runner",
+    "nfopp_tpu_torch.service",
+    "nfopp_tpu_torch.service.postprocessor",
+    "nfopp_tpu_torch.service.world_state",
+    "nfopp_tpu_torch.service.replanner",
+    "nfopp_tpu_torch.service.session",
+    "nfopp_tpu_torch.service.fleet",
 ])
 def test_the_batch_path_modules_load_no_jax(module):
     """The bf16 batch path's modules, the tracked, grouped, holonomic and
-    API modules, and the benchmark suite's subpackages, each imported alone
-    (the suite's runner also pulls in the shortcut and the host math)."""
+    API modules, the benchmark suite's subpackages and the replanning
+    services, each imported alone (the suite's runner also pulls in the
+    shortcut and the host math)."""
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {str(ROOT)!r})\n"
         f"importlib.import_module({module!r})\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'optax', 'flax', 'nfopp_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    result = subprocess.run([sys.executable, "-I", "-c", code], capture_output=True, text=True,
+                            timeout=120)
+    assert result.returncode == 0, result.stderr
+
+
+@pytest.mark.parametrize("name", SCRIPTS[1:])
+def test_the_service_scripts_load_no_jax(name):
+    """Each replanning-service script, loaded as a module as chip_smoke.py
+    loads it, with the service package it drives."""
+    code = (
+        "import importlib.util, sys\n"
+        f"path = {str(ROOT / 'scripts')!r} + '/{name}.py'\n"
+        f"spec = importlib.util.spec_from_file_location({name!r}, path)\n"
+        "module = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(module)\n"
+        "import nfopp_tpu_torch.service\n"
+        "assert callable(module.main)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'flax', 'nfopp_tpu'))\n"
         "assert not bad, bad\n"
