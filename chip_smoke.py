@@ -76,6 +76,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
      warm-up and 4 cycles, replicas bit-identical, a finite path for every
      robot. After (b), (d), (e), (f) and (g) every kernel is held on the
      path's own inputs, (b) and (g) on 128 robots.
+ 12. the paper's comparison (GPMP2, the benchmark adapter and analysis, the
+     demo): (a) GPMP2 (baselines/gpmp2.py through scripts/run_gpmp2_torch.py's
+     functions) on phase 10's 256 corridor worlds, footprint 1.0, the
+     wavefront init on the card, 100 states, 30 Gauss-Newton iterations,
+     after a one-iteration CUDA-vs-CPU check on 4 problems (residuals and
+     Jacobian against the CPU's, J^T J, J^T r and the LU step against f64);
+     every state finite, endpoints within 0.1 of their pins, no problem's
+     cost rising over an iteration, none of the port's kernels launched;
+     timed after a warm-up, with its peak memory, its collision-free count
+     by the script's dense check beside phase 10's NFOPP numbers; (b) the
+     same on the script's movingai (16 .scen entries of the committed city
+     map) and forest (16 seeds) suites, each with the script's JSON line;
+     (c) a BenchmarkAdapter on one corridor world (collision answers against
+     the dilated grid, both planners' paths evaluated and saved), and phase
+     10's and (a)'s logs through bench.analysis into the comparison table;
+     (d) scripts/run_planner_torch.py's demo, one problem, 1000 steps in
+     f32, each f32 kernel once per step (its launches join the kernel line),
+     a finite path with pinned endpoints, its feasibility printed.
 After each solve of phases 7-10 (the tracked and grouped paths, the holonomic
 path, both planners and the suite), every kernel of that path is held against
 its plain version on the inputs the path's next step gives it, at the path's
@@ -1711,7 +1729,7 @@ class SuiteProbe:
         return [(seconds, info) for p, seconds, info in self.calls if p == part]
 
 
-def suite_solve(device, seed: int) -> tuple[dict, dict]:
+def suite_solve(device, seed: int) -> tuple[dict, dict, list, object]:
     """Phase 10: the benchmark suite (run_grid_suite) on the corridor suite
     as its users run it (SUITE_WORLDS, bench_parameters, SUITE_SOLVE). Holds
     the feasible fraction after the restart round, finite paths with pinned
@@ -1720,7 +1738,8 @@ def suite_solve(device, seed: int) -> tuple[dict, dict]:
     init, the CUDA wavefront init equal to a CPU run bit for bit, and every
     kernel of the path on the inputs of the suite's next step (the
     field-gradient kernel also on pretraining's 200 points). Returns the
-    metrics and the suite's launches."""
+    metrics, the suite's launches, its scenarios and its SuiteResult (phase
+    12 plans the same worlds with GPMP2)."""
     import argparse as _argparse
 
     import numpy as np
@@ -1829,7 +1848,7 @@ def suite_solve(device, seed: int) -> tuple[dict, dict]:
     }
     if feasible < 0.98:
         raise AssertionError(f"suite path: feasible fraction {feasible} below the 0.98 floor")
-    return metrics, launches
+    return metrics, launches, scenarios, result
 
 
 def host_service(device, seed: int) -> tuple[dict, dict]:
@@ -2110,6 +2129,313 @@ def fleet_service(device, seed: int) -> tuple[dict, dict]:
             "kernels_held": held}, launches
 
 
+# phase 12, the paper's comparison: GPMP2 (baselines/gpmp2.py) on phase 10's
+# corridor worlds and on run_gpmp2_torch.py's movingai and forest suites (16
+# problems each, as in BASELINE_MEASURED.md's comparison), the benchmark
+# adapter and the results analysis, and the reference demo (run_planner_torch.py)
+GPMP2_SUITES = {"movingai": 16, "forest": 16}
+GPMP2_CHECK = 4  # problems of the one-iteration CUDA-vs-CPU check
+DEMO_STEPS = 1000
+# The tolerances of tests/test_torch_gpmp2.py: residuals rtol 1e-6 (atol
+# 1e-6 x the largest); the Jacobian rtol 1e-5, atol 1e-9 / fix_sigma; J^T J
+# and J^T r within 1e-5 of |J|^T |J| and |J|^T |r| of an f64 product; the step
+# of an f32 LU solve against an f64 solve of the same system at backward
+# error 1e-6 and forward error 1e-3.
+GPMP2_TOL = {"residuals": 1e-6, "jacobian": 1e-5, "normal": 1e-5, "backward": 1e-6,
+             "forward": 1e-3}
+ENDPOINT_TOL = 0.1  # fix_sigma pins the endpoints (tests/test_gpmp2.py:35-36)
+
+
+def gpmp2_normal_errors(flat, problem, config) -> dict:
+    """One Gauss-Newton iteration's pieces at `flat` and their errors against
+    f64: (r, J, J^T J, J^T r, step) and {name: max error over its bound}."""
+    import torch
+
+    from nfopp_tpu_torch.baselines import gpmp2
+
+    args = (problem.start, problem.goal, problem.sdf, config, problem.whitener)
+    r, jtj, jtr = gpmp2._normal_equations(flat, problem, config)
+    jac = gpmp2._jacobian(flat, *args)
+    j64, r64 = jac.double(), r.double()
+    jt = j64.transpose(1, 2)
+    ratio = {
+        "jtj": float(((jtj.double() - jt @ j64).abs()
+                      / (jt.abs() @ j64.abs()).clamp_min(1e-30)).max()),
+        "jtr": float(((jtr.double() - (jt @ r64[..., None])[..., 0]).abs()
+                      / (jt.abs() @ r64.abs()[..., None])[..., 0].clamp_min(1e-30)).max()),
+    }
+    step = gpmp2._step(jtj, jtr, config)
+    damped = jtj + config.damping * torch.diag_embed(torch.diagonal(jtj, dim1=1, dim2=2))
+    a64 = (damped + 1e-8 * torch.eye(jtj.shape[-1], device=jtj.device)).double()
+    b64, d64 = jtr.double(), step.double()
+    exact = torch.linalg.solve(a64, b64)
+    residual = (a64 @ d64[..., None])[..., 0] - b64
+    ratio["backward"] = float((residual.abs().amax(-1) / (
+        a64.abs().sum(-1).amax(-1) * d64.abs().amax(-1) + b64.abs().amax(-1))).max())
+    ratio["forward"] = float(((d64 - exact).norm(dim=-1) / exact.norm(dim=-1)).max())
+    return (r, jac, step), ratio
+
+
+def gpmp2_agreement(sdf, starts, goals, init_xy, config) -> dict:
+    """12a's check of one iteration on GPMP2_CHECK problems: residuals and
+    Jacobian on CUDA against the CPU's at the same states, J^T J, J^T r and
+    the LU step of each device against f64, at GPMP2_TOL."""
+    from nfopp_tpu_torch.baselines import gpmp2
+
+    k = GPMP2_CHECK
+    sdf_k = gpmp2.SDF(*(x[:k] for x in sdf))
+    flat, problem = gpmp2._setup(sdf_k, starts[:k], goals[:k], config, init_xy[:k])
+    cpu_problem = gpmp2._Problem(*(x.cpu() for x in problem[:2]),
+                                 gpmp2.SDF(*(x.cpu() for x in sdf_k)), problem.whitener.cpu())
+    (r, jac, step), ratios = gpmp2_normal_errors(flat, problem, config)
+    (r_cpu, jac_cpu, step_cpu), cpu_ratios = gpmp2_normal_errors(flat.cpu(), cpu_problem, config)
+    r, jac = r.cpu(), jac.cpu()
+    scale = r_cpu.abs().amax(dim=1, keepdim=True)
+    out = {
+        "problems": k,
+        "residuals_rel": float(((r - r_cpu).abs() / (r_cpu.abs() + scale)).max()),
+        "jacobian_max_abs": float((jac - jac_cpu).abs().max()),
+        "cuda": ratios, "cpu": cpu_ratios,
+        "step_cuda_vs_cpu_rel": float(((step.cpu() - step_cpu).norm(dim=-1)
+                                       / step_cpu.norm(dim=-1)).max()),
+    }
+    if not ((r - r_cpu).abs() <= GPMP2_TOL["residuals"] * (r_cpu.abs() + scale)).all():
+        raise AssertionError(f"gpmp2: CUDA residuals differ from the CPU's: {out}")
+    if not ((jac - jac_cpu).abs() <= GPMP2_TOL["jacobian"] * jac_cpu.abs()
+            + 1e-9 / config.fix_sigma).all():
+        raise AssertionError(f"gpmp2: CUDA Jacobian differs from the CPU's: {out}")
+    for device, errors in (("cuda", ratios), ("cpu", cpu_ratios)):
+        for name, tol in (("jtj", "normal"), ("jtr", "normal"), ("backward", "backward"),
+                          ("forward", "forward")):
+            if errors[name] > GPMP2_TOL[tol]:
+                raise AssertionError(f"gpmp2: {device} {name} error {errors[name]} over "
+                                     f"{GPMP2_TOL[tol]}: {out}")
+    return out
+
+
+def gpmp2_solve(what: str, script, sdf, starts, goals, init_xy, config) -> tuple:
+    """gpmp2_plan as run_gpmp2_torch.py runs it (`plan`, timed after a
+    one-iteration warm-up), then its iterations again one by one with each
+    problem's cost. Holds: no kernel of the port launched, every state
+    finite, the endpoints within ENDPOINT_TOL of start and goal, no problem's
+    cost rising over an iteration, the stepwise run equal to the plan.
+    Returns (states, wall seconds, metrics)."""
+    import torch
+
+    from nfopp_tpu_torch import kernels
+    from nfopp_tpu_torch.baselines import gpmp2
+
+    script.plan(sdf, starts, goals, config._replace(iterations=1), init_xy)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kernels.reset_launches()
+    states, wall = script.plan(sdf, starts, goals, config, init_xy)
+    peak = torch.cuda.max_memory_allocated() - base
+    if any(kernels.LAUNCHES.values()):
+        raise AssertionError(f"{what}: GPMP2 launched the port's kernels: {kernels.LAUNCHES}")
+
+    flat, problem = gpmp2._setup(sdf, starts, goals, config, init_xy)
+    costs = [gpmp2.gpmp2_cost(flat, problem.start, problem.goal, sdf, config, problem.whitener)]
+    for _ in range(config.iterations):
+        flat = gpmp2._gn_step(flat, problem, config)
+        costs.append(gpmp2.gpmp2_cost(flat, problem.start, problem.goal, sdf, config,
+                                      problem.whitener))
+    costs = torch.stack(costs, dim=1)
+    stepwise = flat.reshape(states.shape)
+    batch = states.shape[0]
+    if tuple(states.shape) != (batch, config.num_steps, 4) or not torch.isfinite(states).all():
+        raise AssertionError(f"{what}: bad GPMP2 states, shape {tuple(states.shape)}")
+    for got, want, end in ((states[:, 0, :2], starts, "start"), (states[:, -1, :2], goals, "goal")):
+        miss = float((got - want).abs().max())
+        if miss > ENDPOINT_TOL:
+            raise AssertionError(f"{what}: a GPMP2 {end} is {miss} from its pin")
+    if not (costs[:, 1:] <= costs[:, :-1]).all():
+        raise AssertionError(f"{what}: a GPMP2 cost rose over an iteration")
+    differ = float((stepwise - states).abs().max())
+    if differ > 1e-3:
+        raise AssertionError(f"{what}: the stepwise GPMP2 run differs from the plan by {differ}")
+    metrics = {
+        "problems": batch, "iterations": config.iterations, "num_steps": config.num_steps,
+        "peak_memory_bytes": peak, "launches": 0,
+        "endpoint_max_miss": float(max((states[:, 0, :2] - starts).abs().max(),
+                                       (states[:, -1, :2] - goals).abs().max())),
+        "cost_first_mean": float(costs[:, 0].mean()),
+        "cost_final_mean": float(costs[:, -1].mean()),
+        "steps_accepted_mean": float((costs[:, 1:] < costs[:, :-1]).float().sum(1).mean()),
+        "stepwise_equals_plan": differ == 0.0,
+    }
+    return states, wall, metrics
+
+
+def gpmp2_parts(sdf, starts, goals, init_xy, config) -> dict:
+    """ms of one Gauss-Newton iteration's parts at the initial states (CUDA
+    events, 3 calls each after a warm-up): the residuals, the per-problem
+    Jacobians, J^T J and J^T r, and the LU step."""
+    from nfopp_tpu_torch.baselines import gpmp2
+    from nfopp_tpu_torch.tools.scene import time_ms
+
+    flat, problem = gpmp2._setup(sdf, starts, goals, config, init_xy)
+    args = (problem.start, problem.goal, problem.sdf, config, problem.whitener)
+    jac = gpmp2._jacobian(flat, *args)
+    r = gpmp2._residuals(flat, *args)
+    jac_t = jac.transpose(1, 2)
+    jtj, jtr = jac_t @ jac, (jac_t @ r[..., None])[..., 0]
+    return {
+        "residuals": time_ms(lambda: gpmp2._residuals(flat, *args), iters=3, warmup=1),
+        "jacobian": time_ms(lambda: gpmp2._jacobian(flat, *args), iters=3, warmup=1),
+        "normal_products": time_ms(lambda: (jac_t @ jac, jac_t @ r[..., None]), iters=3,
+                                   warmup=1),
+        "lu_step": time_ms(lambda: gpmp2._step(jtj, jtr, config), iters=3, warmup=1),
+    }
+
+
+def gpmp2_corridor(device, scenarios, suite_result) -> tuple[dict, object, object]:
+    """Phase 12a: GPMP2 on phase 10's corridor worlds (footprint 1.0, the
+    wavefront init on the card, GPMP2Config(num_steps=100), 30 iterations),
+    after the one-iteration CUDA-vs-CPU check; the comparison row beside
+    phase 10's NFOPP numbers on the same worlds. Returns the metrics, the
+    GPMP2 results log and the states [B, N, 4]."""
+    import numpy as np
+
+    from nfopp_tpu_torch.baselines import GPMP2Config
+
+    script = load_script("run_gpmp2_torch")
+    config = GPMP2Config(num_steps=100)
+    t0 = time.perf_counter()
+    oracles, sdf, starts, goals, init_xy = script.prepare(
+        scenarios, SUITE_SOLVE["footprint_radius"], config, device)
+    prepare_s = time.perf_counter() - t0
+    agreement = gpmp2_agreement(sdf, starts, goals, init_xy, config)
+    log(f"gpmp2 agreement CUDA vs CPU, one iteration of {GPMP2_CHECK} problems: {agreement}")
+    states, wall, metrics = gpmp2_solve("gpmp2 corridor", script, sdf, starts, goals, init_xy,
+                                        config)
+    metrics["iteration_ms"] = gpmp2_parts(sdf, starts, goals, init_xy, config)
+    gpmp2_log, collides, stats = script.evaluate(states, scenarios, oracles, wall, "corridor")
+    row = script.summary("corridor", wall, collides, stats, device)
+    nfopp = suite_result.stats
+    metrics.update(row, prepare_s=prepare_s, agreement=agreement, nfopp={
+        "problems": len(nfopp), "collision_free": int(suite_result.feasible.sum()),
+        "mean_length": float(np.mean([s.path_length for s in nfopp])),
+        "mean_smoothness": float(np.mean([s.smoothness for s in nfopp])),
+        "s_per_problem": suite_result.wall_time / len(nfopp),
+    })
+    return metrics, gpmp2_log, states
+
+
+def gpmp2_suites(device) -> dict:
+    """Phase 12b: run_gpmp2_torch.py's functions on its movingai suite (the
+    committed city map's first 16 .scen entries) and forest suite (16 seeds),
+    with 12a's holds; each suite's JSON line as the script prints it."""
+    from nfopp_tpu_torch.baselines import GPMP2Config
+
+    script = load_script("run_gpmp2_torch")
+    config = GPMP2Config(num_steps=100)
+    out = {}
+    for suite, seeds in GPMP2_SUITES.items():
+        scenarios = script.build_scenarios(suite, seeds, 0.0)
+        oracles, sdf, starts, goals, init_xy = script.prepare(scenarios, 1.0, config, device)
+        states, wall, metrics = gpmp2_solve(f"gpmp2 {suite}", script, sdf, starts, goals,
+                                            init_xy, config)
+        _, collides, stats = script.evaluate(states, scenarios, oracles, wall, suite)
+        line = script.summary(suite, wall, collides, stats, device)
+        print(json.dumps(line), flush=True)
+        out[suite] = {**line, **metrics}
+    return out
+
+
+def adapter_analysis(device, scenario, nfopp_path, gpmp2_path, nfopp_log, gpmp2_log) -> dict:
+    """Phase 12c: a BenchmarkAdapter on one corridor world on the card (its
+    collision answers against the dilated grid on obstacle cells and free
+    cells, both planners' paths evaluated and saved), then phase 10's and
+    12a's logs through analysis.load_results / merge_results /
+    aggregate_stats / format_stats_table; the table is logged."""
+    import tempfile
+
+    import numpy as np
+
+    from nfopp_tpu_torch.bench import BenchmarkAdapter, BenchmarkCollisionChecker, ResultsLog
+    from nfopp_tpu_torch.bench import analysis
+    from nfopp_tpu_torch.utils import Position2
+    from nfopp_tpu_torch.worlds import dilate
+
+    radius = SUITE_SOLVE["footprint_radius"]
+    truth = dilate(scenario.blocked, int(np.ceil(radius / scenario.resolution)))
+    rng = np.random.RandomState(0)
+    blocked_cells = np.argwhere(scenario.blocked)
+    free_cells = np.argwhere(~truth)
+    cells = np.concatenate([blocked_cells[rng.choice(len(blocked_cells), 64, replace=False)],
+                            free_cells[rng.choice(len(free_cells), 64, replace=False)]])
+    ox, oy = scenario.origin
+    poses = np.stack([ox + (cells[:, 1] + 0.5) * scenario.resolution,
+                      oy + (cells[:, 0] + 0.5) * scenario.resolution,
+                      rng.uniform(-np.pi, np.pi, len(cells))], axis=1).astype(np.float32)
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        tmp = pathlib.Path(tmp)
+        adapter = BenchmarkAdapter(scenario, radius, log_file=tmp / "adapter.json", device=device)
+        want = truth[cells[:, 0], cells[:, 1]]
+        if not np.array_equal(adapter.collides_positions(poses), want):
+            raise AssertionError("adapter: collides_positions disagrees with the grid")
+        if not np.array_equal(BenchmarkCollisionChecker(adapter).check_collision(poses), want):
+            raise AssertionError("adapter: the collision checker disagrees with the grid")
+        if not (adapter.is_collision(Position2.from_vec(poses[0]))
+                and not adapter.is_collision(Position2.from_vec(poses[-1]))):
+            raise AssertionError("adapter: is_collision disagrees with the grid")
+        for path, name in ((nfopp_path, "constrained_onf_planner"), (gpmp2_path, "gpmp2_torch")):
+            saved = adapter.evaluate_and_save_results(path, name)
+        doc = ResultsLog.load(saved)
+        plans = {name: run["plans"][name] for run in doc["runs"] for name in run["plans"]}
+        evaluated = {name: {"path_collides": plan["stats"]["path_collides"],
+                            "path_length": plan["stats"]["path_length"]}
+                     for name, plan in plans.items()}
+        if set(plans) != {"constrained_onf_planner", "gpmp2_torch"}:
+            raise AssertionError(f"adapter: saved plans {sorted(plans)}")
+
+        files = [nfopp_log.save(tmp / "nfopp.json"), gpmp2_log.save(tmp / "gpmp2.json")]
+        merged = analysis.merge_results(files, tmp / "merged.json")
+        document = analysis.load_results([merged])
+        aggregated = analysis.aggregate_stats(document)
+        table = analysis.format_stats_table(aggregated)
+    counts = {planner: rows["path_length"]["count"] for planner, rows in aggregated.items()}
+    if len(counts) != 2 or len(set(counts.values())) != 1:
+        raise AssertionError(f"analysis: runs per planner {counts}")
+    for line in table.splitlines():
+        log("  " + line)
+    return {"collision_answers": len(cells), "evaluated": evaluated, "runs": counts,
+            "collision_free": {p: 1 - rows["path_collides"]["mean"]
+                               for p, rows in aggregated.items()}}
+
+
+def demo(device, seed: int) -> tuple[dict, dict]:
+    """Phase 12d: run_planner_torch.py's functions, one car-scene problem for
+    DEMO_STEPS steps in f32, no frames: each f32 kernel once per step, a
+    finite final path with pinned endpoints; its feasibility is printed."""
+    import numpy as np
+    import torch
+
+    from nfopp_tpu_torch import kernels
+
+    script = load_script("run_planner_torch")
+    kernels.reset_launches()
+    solver, state, oracle, g = script.build(seed, device)
+    state, losses, elapsed = script.run(solver, state, oracle, g, DEMO_STEPS, log=lambda _: None)
+    launches = dict(kernels.LAUNCHES)
+    check_launches(launches, MAIN_PATH, DEMO_STEPS, "the demo",
+                   extra={"field_grad": solver.config.init_collision_iteration})
+    path, collides, length = script.final_path(solver, state, oracle)
+    if path.shape != (solver.config.trajectory_length + 2, 3) or not np.isfinite(path).all():
+        raise AssertionError(f"demo: bad final path, shape {path.shape}")
+    for got, want, end in ((path[0], state.start[0], "start"), (path[-1], state.goal[0], "goal")):
+        if not np.allclose(got, want.cpu().numpy(), atol=1e-5):
+            raise AssertionError(f"demo: the path's {end} is not pinned")
+    if not all(np.isfinite(loss) for _, *pair in losses for loss in pair):
+        raise AssertionError("demo: non-finite losses")
+    torch.cuda.synchronize()
+    return {"steps": DEMO_STEPS, "seconds": elapsed, "ms_per_step": elapsed / DEMO_STEPS * 1e3,
+            "field_loss": losses[-1][1], "trajectory_loss": losses[-1][2],
+            "length": length, "collision_free": not collides,
+            "launches": {name: launches[name] for name in MAIN_PATH}}, launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of weights, data and noise")
@@ -2200,7 +2526,7 @@ def main() -> int:
     print(json.dumps({"checkpoint": {**checkpoint, "card": card}}), flush=True)
 
     # 10. benchmark suite (run_grid_suite), f32: its launches join the f32 kernels' counts
-    suite, suite_launches = suite_solve(device, args.seed)
+    suite, suite_launches, suite_scenarios, suite_result = suite_solve(device, args.seed)
     print(json.dumps({"suite_path": {**suite, "card": card}}), flush=True)
     for name in MAIN_PATH:
         launches[name] += suite_launches[name]
@@ -2228,6 +2554,23 @@ def main() -> int:
     for name in MAIN_PATH_BF16:
         launches[name] += server_launches[name]
     log(f"phase 11: {time.perf_counter() - t0:.1f}s")
+
+    # 12. the paper's comparison: GPMP2 on phase 10's worlds and the script's
+    # suites, the adapter and analysis, and the demo, whose launches join the
+    # f32 kernels' counts
+    t0 = time.perf_counter()
+    gpmp2, gpmp2_log, gpmp2_states = gpmp2_corridor(device, suite_scenarios, suite_result)
+    print(json.dumps({"gpmp2_corridor": {**gpmp2, "card": card}}), flush=True)
+    print(json.dumps({"gpmp2_suites": {**gpmp2_suites(device), "card": card}}), flush=True)
+    gpmp2_paths, _ = load_script("run_gpmp2_torch").dense_paths(gpmp2_states[:1].cpu().numpy())
+    adapter = adapter_analysis(device, suite_scenarios[0], suite_result.paths[0], gpmp2_paths[0],
+                               suite_result.log, gpmp2_log)
+    print(json.dumps({"adapter_analysis": {**adapter, "card": card}}), flush=True)
+    demo_metrics, demo_launches = demo(device, args.seed)
+    print(json.dumps({"demo": {**demo_metrics, "card": card}}), flush=True)
+    for name in MAIN_PATH:
+        launches[name] += demo_launches[name]
+    log(f"phase 12: {time.perf_counter() - t0:.1f}s")
 
     entries = []
     for name, res in kernel_results.items():

@@ -1,8 +1,10 @@
 """Benchmark evaluation (port of `nfopp_tpu/bench/`): path-quality metrics
-(native C++ + numpy), the results schema and the suite runner. `adapter` and
-`analysis` are not ported."""
+(native C++ + numpy), the results schema, the suite runner, the benchmark
+adapter (`BenchmarkAdapter`, `BenchmarkCollisionChecker`) and the results
+analysis (`analysis`: load, merge, aggregate, tables and plots)."""
 
-from . import native_binding
+from . import analysis, native_binding
+from .adapter import BenchmarkAdapter, BenchmarkCollisionChecker
 from .metrics import (
     PathStatistics,
     active_evaluator,
@@ -20,7 +22,10 @@ from .results import (
 )
 
 __all__ = [
+    "analysis",
     "native_binding",
+    "BenchmarkAdapter",
+    "BenchmarkCollisionChecker",
     "PathStatistics",
     "active_evaluator",
     "path_statistics",

@@ -10,6 +10,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 SCRIPTS = ("run_benchmark_torch", "replan_latency_torch", "dynamic_replan_demo_torch",
            "anytime_server_torch")
+COMPARISON_SCRIPTS = ("run_gpmp2_torch", "analyze_results_torch", "run_planner_torch")
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|optax|flax|nfopp_tpu)(\.|\s|$)", re.M)
 
 
@@ -34,7 +35,7 @@ def test_importing_the_port_loads_no_jax():
 
 def test_no_jax_import_statements():
     files = sorted((ROOT / "nfopp_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
-        ROOT / "scripts" / f"{name}.py" for name in SCRIPTS]
+        ROOT / "scripts" / f"{name}.py" for name in SCRIPTS + COMPARISON_SCRIPTS]
     assert len(files) > 20
     for path in files:
         match = FORBIDDEN.search(path.read_text())
@@ -63,12 +64,23 @@ def test_no_jax_import_statements():
     "nfopp_tpu_torch.service.replanner",
     "nfopp_tpu_torch.service.session",
     "nfopp_tpu_torch.service.fleet",
+    "nfopp_tpu_torch.baselines",
+    "nfopp_tpu_torch.baselines.gpmp2",
+    "nfopp_tpu_torch.bench.adapter",
+    "nfopp_tpu_torch.bench.analysis",
+    "nfopp_tpu_torch.plotting",
+    "nfopp_tpu_torch.utils",
+    "nfopp_tpu_torch.utils.position2",
+    "nfopp_tpu_torch.utils.factory",
+    "nfopp_tpu_torch.utils.timer",
+    "nfopp_tpu_torch.utils.profiling",
 ])
 def test_the_batch_path_modules_load_no_jax(module):
     """The bf16 batch path's modules, the tracked, grouped, holonomic and
-    API modules, the benchmark suite's subpackages and the replanning
-    services, each imported alone (the suite's runner also pulls in the
-    shortcut and the host math)."""
+    API modules, the benchmark suite's subpackages, the replanning
+    services, and the comparison path's (the GPMP2 baseline, the adapter,
+    the analysis, plotting, the host utilities), each imported alone (the
+    suite's runner also pulls in the shortcut and the host math)."""
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {str(ROOT)!r})\n"
@@ -97,6 +109,29 @@ def test_the_service_scripts_load_no_jax(name):
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'flax', 'nfopp_tpu'))\n"
         "assert not bad, bad\n"
+    )
+    result = subprocess.run([sys.executable, "-I", "-c", code], capture_output=True, text=True,
+                            timeout=120)
+    assert result.returncode == 0, result.stderr
+
+
+@pytest.mark.parametrize("name", COMPARISON_SCRIPTS)
+def test_the_comparison_scripts_load_no_jax(name):
+    """Each script of the comparison path (GPMP2, the analysis CLI, the
+    demo), loaded as a module as chip_smoke.py loads it, with the modules it
+    drives."""
+    code = (
+        "import importlib.util, sys\n"
+        f"path = {str(ROOT / 'scripts')!r} + '/{name}.py'\n"
+        f"spec = importlib.util.spec_from_file_location({name!r}, path)\n"
+        "module = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(module)\n"
+        "import nfopp_tpu_torch.baselines, nfopp_tpu_torch.bench, nfopp_tpu_torch.plotting\n"
+        "assert callable(module.main)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'optax', 'flax', 'nfopp_tpu'))\n"
+        "assert not bad, bad\n"
+        "assert 'matplotlib' not in sys.modules\n"
     )
     result = subprocess.run([sys.executable, "-I", "-c", code], capture_output=True, text=True,
                             timeout=120)
