@@ -94,6 +94,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
      (d) scripts/run_planner_torch.py's demo, one problem, 1000 steps in
      f32, each f32 kernel once per step (its launches join the kernel line),
      a finite path with pinned endpoints, its feasibility printed.
+ 13. the merged field+trajectory step and the Jacobi order
+     (ExperimentalConstrainedSolver, experimental/merged_step.py), car scene,
+     run_planner_config, B=256 x 1000 steps: merged in f32 and bf16 and in
+     groups of 8 shared fields (run_grouped), none of the port's kernels
+     launched, finite, replicas bit-identical; the Jacobi order in f32, each
+     f32 kernel once per step and held on its own inputs; feasible fractions
+     printed. Then one step of 4 problems: merged against Jacobi on the card
+     (field loss and gradients at phase 3's tolerances, the same replay
+     buffer while no candidate's weight is below the floor) and merged on the
+     card against the CPU. Then the suite and parity scripts through their
+     functions (SCRIPT_RUNS), ours side only: compare_suites_torch (16
+     corridor worlds), shortcut_gains_torch --smoke (corridor),
+     run_sweep_torch (2 sigmas x 1 weight, 16 worlds, 500 iterations),
+     two_walls_reliability_torch (1 seed x 8 restarts: single, portfolio,
+     shared field, 1000 iterations), compare_with_reference_torch (16 seeds
+     in one batch),
+     compare_holonomic_torch (4 seeds); the launches of the Jacobi cell and
+     of the scripts join the f32 kernels' counts.
 After each solve of phases 7-10 (the tracked and grouped paths, the holonomic
 path, both planners and the suite), every kernel of that path is held against
 its plain version on the inputs the path's next step gives it, at the path's
@@ -112,6 +130,7 @@ import argparse
 import itertools
 import json
 from functools import partial
+import math
 import pathlib
 import sys
 import time
@@ -2436,6 +2455,290 @@ def demo(device, seed: int) -> tuple[dict, dict]:
             "launches": {name: launches[name] for name in MAIN_PATH}}, launches
 
 
+# phase 13, the merged field+trajectory step and the Jacobi order
+# (experimental/merged_step.py, ExperimentalConstrainedSolver) on the car
+# scene, and the suite and parity scripts through their functions at a few
+# seeds and full width. MERGED_CELLS: (line, order, bf16, group size).
+# SCRIPT_RUNS: each script's size; every solve runs the script's default
+# budget of 1000 iterations but the sweep's (500). The reliability probe runs
+# one seed (its three solves of 1000 steps, the shared one always to the
+# end, take ~40 s a seed).
+MERGED_CELLS = (("merged_path", "merged", False, 1), ("merged_path_bf16", "merged", True, 1),
+                ("grouped_merged_path", "merged", False, GROUP_SIZE),
+                ("jacobi_path", "jacobi", False, 1))
+SCRIPT_RUNS = {"compare_suites": {"worlds": 16, "min_geodesic": 120.0, "iterations": 1000},
+               "shortcut_gains": {"suite": "corridor"},
+               "run_sweep": {"worlds": 16, "sigmas": (2.5, 5.0), "weights": (100.0,),
+                             "iterations": 500},
+               "two_walls_reliability": {"seeds": 1, "restarts": 8, "iterations": 1000},
+               "compare_with_reference": {"seeds": 16, "iterations": 1000},
+               "compare_holonomic": {"seeds": 4, "iterations": 1000}}
+
+
+def order_solve(device, seed: int, batch: int, steps: int, order: str, bf16: bool,
+                group_size: int) -> tuple[dict, dict]:
+    """Phase 13: the car-scene solve in the merged or Jacobi order
+    (ExperimentalConstrainedSolver), f32 or bf16, one field per problem
+    (`run`) or one per group of `group_size` (`init_state(group_size)` +
+    `run_grouped`). The merged step launches none of the port's kernels; the
+    Jacobi order launches each f32 kernel once per step and is held against
+    the plain versions on its own inputs (`hold_path_kernels`); a group's
+    replicas end bit-identical. The feasible fraction is printed, not held."""
+    import torch
+
+    from nfopp_tpu_torch import kernels
+    from nfopp_tpu_torch.experimental import ExperimentalConstrainedSolver
+    from nfopp_tpu_torch.solver import evaluate_path, run_planner_config
+    from nfopp_tpu_torch.tools.scene import car_world
+    from nfopp_tpu_torch.worlds import rectangle_collision
+
+    cfg = bf16_config(run_planner_config()) if bf16 else run_planner_config()
+    oracle, start, goal, bounds = car_world(batch, device)
+    solver = ExperimentalConstrainedSolver(cfg, rectangle_collision, device=device,
+                                           **{f"{order}_step": True})
+    g = torch.Generator(device=device).manual_seed(seed)
+    state = solver.init_state(g, start, goal, bounds, oracle, group_size=group_size)
+    torch.cuda.synchronize()
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    if group_size > 1:
+        state, aux = solver.run_grouped(state, oracle, steps, group_size, g)
+    else:
+        state, aux = solver.run(state, oracle, steps, g)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+
+    what = f"the {order} path ({cfg.onf.compute_dtype}, groups of {group_size})"
+    check_launches(launches, MAIN_PATH if order == "jacobi" else (), steps, what)
+    paths = solver.full_trajectory(state)
+    check_finite_paths(paths, (batch, cfg.trajectory_length + 2, 3), what)
+    if not torch.isfinite(aux.field_loss).all() or not torch.isfinite(aux.trajectory_loss).all():
+        raise AssertionError(f"{what}: non-finite losses")
+    if group_size > 1:
+        check_replicas((state.field_params, state.field_opt_state), group_size)
+    collides, length = evaluate_path(rectangle_collision, oracle, paths)
+    feasible = float((~collides).float().mean())
+    metrics = {
+        "batch": batch, "steps": steps, "order": order, "compute_dtype": cfg.onf.compute_dtype,
+        "group_size": group_size, "seconds": seconds,
+        "us_per_step_per_problem": per_problem_us(seconds, steps, batch),
+        "solves_per_s": batch / seconds, "feasible_fraction": feasible,
+        "feasible_count": int((~collides).sum()),
+        "mean_length_feasible": float(length[~collides].mean()) if feasible > 0 else None,
+        "final_field_loss": float(aux.field_loss[:, -1].mean()),
+        "launches_per_step": {name: count / steps for name, count in launches.items()},
+    }
+    if group_size > 1:
+        metrics["replicas_bit_identical"] = True
+    if order == "jacobi":
+        metrics["kernels_held"] = hold_path_kernels("jacobi path", solver, state, oracle,
+                                                    seed + 13)
+    return metrics, launches
+
+
+def by_x(points, ages):
+    """A replay buffer [B, K, 3] and its ages as a set: rows sorted by x (the
+    floor moves scores by < 1e-4 and may reorder two picks of near-equal
+    score without changing which candidates are picked)."""
+    import torch
+
+    order = torch.argsort(points[..., 0], dim=1)
+    return (torch.gather(points, 1, order[..., None].expand_as(points)),
+            torch.gather(ages, 1, order))
+
+
+def merged_agreement(device, seed: int) -> dict:
+    """Phase 13: one step of 4 car-scene problems, 10 merged steps into a
+    solve. (a) The merged step against the Jacobi order on the card, from the
+    same state and noise, before the field's Adam update: the field loss and
+    every parameter gradient at phase 3's field-gradient tolerances (with its
+    ReLU-kink recomputation on the Jacobi order's training points), the
+    trajectory loss rtol 1e-4, the trajectory and both multiplier vectors
+    atol 1e-5, and the same replay buffer while no candidate's weight sits
+    below buffer_weight_floor (the merged step has no floor,
+    merged_step.py:274), compared as sets of picks (`by_x`). (b) One merged step on the card against the CPU,
+    from the same state and noise, at agreement_check's tolerances: every
+    tensor but the field parameters atol 1e-5 (losses rtol 1e-4), the field
+    parameters atol 1e-4 (Adam's lr * g / (|g| + eps))."""
+    import torch
+
+    from nfopp_tpu_torch.experimental import ExperimentalConstrainedSolver
+    from nfopp_tpu_torch.experimental.merged_step import merged_partial_step, onf_forward_acts
+    from nfopp_tpu_torch.ops.sampling import GeneratorNoise
+    from nfopp_tpu_torch.solver import run_planner_config
+    from nfopp_tpu_torch.solver.field import buffer_log_weights, field_sample_pre
+    from nfopp_tpu_torch.tools.scene import car_world
+    from nfopp_tpu_torch.utils.tree import tree_leaves, tree_map
+    from nfopp_tpu_torch.worlds import rectangle_collision
+
+    cfg = run_planner_config()
+    oracle, start, goal, bounds = car_world(4, device)
+    merged = ExperimentalConstrainedSolver(cfg, rectangle_collision, device=device,
+                                           merged_step=True)
+    jacobi = ExperimentalConstrainedSolver(cfg, rectangle_collision, device=device,
+                                           jacobi_step=True)
+    g = torch.Generator().manual_seed(seed)
+    state = merged.init_state(g, start, goal, bounds, oracle)
+    state, _ = merged.run(state, oracle, 10, GeneratorNoise(g))
+
+    def noise():
+        return GeneratorNoise(torch.Generator().manual_seed(seed + 1))
+
+    # (a) merged against jacobi, before the field update
+    m_state, m_grads, m_loss, m_traj_loss = merged_partial_step(merged, state, oracle, noise())
+    j_noise = noise()
+    sample, j_loss, j_grads = jacobi._field_grads(state, oracle, j_noise)
+    j_state, j_traj_loss = jacobi._trajectory_step(state, j_noise)
+    truth = jacobi.oracle_fn(oracle, sample.train_points)
+    onf = cfg.onf
+    errors = {
+        "field_loss": hold("merged vs jacobi field loss", [m_loss], [j_loss], [(1e-5, 1e-6)]),
+        "field_grads": hold("merged vs jacobi field gradients", tree_leaves(m_grads),
+                            tree_leaves(j_grads), [(2e-4, 2e-5)] * len(tree_leaves(j_grads)),
+                            kinks=(state.field_params, sample.train_points, onf,
+                                   field_grad_f64(truth, onf))),
+        "trajectory_loss": hold("merged vs jacobi trajectory loss", [m_traj_loss],
+                                [j_traj_loss], [(1e-4, 1e-5)]),
+    }
+    for name in ("trajectory", "constraint_multipliers", "collision_multipliers"):
+        errors[name] = hold(f"merged vs jacobi {name}", [getattr(m_state, name)],
+                            [getattr(j_state, name)], [(0.0, 1e-5)])
+    pre = field_sample_pre(cfg, noise(), state.prev_trajectory, state.bounds)
+    candidates = torch.cat([state.buffer_points, pre.fine], dim=1)
+    ages = torch.cat([state.buffer_ages, torch.zeros_like(pre.fine[..., 0])], dim=1)
+    logits = onf_forward_acts(state.field_params, candidates, onf).logits[..., 0]
+    log_w = buffer_log_weights(cfg, logits, ages, floor=False)
+    below = int((log_w < math.log(cfg.buffer_weight_floor)).sum())
+    if below == 0 and not all(torch.equal(*picks) for picks in zip(
+            by_x(m_state.buffer_points, m_state.buffer_ages),
+            by_x(sample.buffer_points, sample.buffer_ages))):
+        raise AssertionError("merged vs jacobi: different replay buffers with every "
+                             "candidate's weight above the floor")
+    result = {"merged_vs_jacobi": errors, "candidates_below_floor": below,
+              "buffers_compared": below == 0,
+              "min_candidate_weight": float(log_w.min().exp())}
+
+    # (b) one merged step, CUDA against the CPU
+    outs = []
+    for dev in (device, torch.device("cpu")):
+        slv = ExperimentalConstrainedSolver(cfg, rectangle_collision, device=dev,
+                                            merged_step=True)
+        st, aux = slv.step_static(tree_map(lambda x: x.to(dev), state), car_world(4, dev)[0],
+                                  noise(), with_reparam=False)
+        outs.append(tree_map(lambda x: x.cpu(), (st, aux)))
+    (a, aux_a), (b, aux_b) = outs
+    cuda_cpu = {}
+    for name in ("trajectory", "collision_multipliers", "constraint_multipliers",
+                 "buffer_points", "buffer_ages"):
+        cuda_cpu[name] = hold(f"merged CUDA vs CPU {name}", [getattr(a, name)],
+                              [getattr(b, name)], [(0.0, 1e-5)])
+    for name in aux_a._fields:
+        cuda_cpu[name] = hold(f"merged CUDA vs CPU {name}", [getattr(aux_a, name)],
+                              [getattr(aux_b, name)], [(1e-4, 1e-5)])
+    params = list(zip(tree_leaves(a.field_params), tree_leaves(b.field_params)))
+    cuda_cpu["field_params"] = hold("merged CUDA vs CPU field_params", *zip(*params),
+                                    [(0.0, 1e-4)] * len(params))
+    result["merged_cuda_vs_cpu"] = cuda_cpu
+    return result
+
+
+def timed_script(name: str, fn) -> tuple[dict, dict]:
+    """Run one script's functions with the kernel counts set to 0 just before
+    and read just after; returns (its line with the wall seconds, launches)."""
+    import torch
+
+    from nfopp_tpu_torch import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    line = fn()
+    torch.cuda.synchronize()
+    return {**line, "seconds": time.perf_counter() - t0}, dict(kernels.LAUNCHES)
+
+
+def suite_scripts(device, seed: int) -> list:
+    """Phase 13's script runs: [(line name, its line, launches)], each script
+    driven through its functions on the card (SCRIPT_RUNS), ours side only
+    where it compares with the reference planner."""
+    import numpy as np
+    import torch
+
+    runs = []
+
+    def compare_suites():
+        script = load_script("compare_suites_torch")
+        spec = SCRIPT_RUNS["compare_suites"]
+        scenarios = script.build_scenarios("corridor", spec["worlds"], spec["min_geodesic"])
+        paths, wall = script.ours_suite_run(scenarios, script.suite_parameters("corridor"),
+                                            spec["iterations"], device=device)
+        check_finite_paths(torch.as_tensor(paths), (len(scenarios), 102, 3),
+                           "compare_suites_torch")
+        evals = [ev(p) for ev, p in zip(script.grid_evaluators(scenarios, device), paths)]
+        feasible = [not c for c, _ in evals]
+        return {"suite": "corridor", "worlds": len(scenarios),
+                "iterations": spec["iterations"], "wall_s": wall,
+                "feasible": int(sum(feasible)),
+                "mean_length_feasible": float(np.mean([length for (c, length) in evals
+                                                       if not c])) if any(feasible) else None,
+                "reference": "skipped"}
+
+    def shortcut_gains():
+        row = load_script("shortcut_gains_torch").suite_gains(
+            SCRIPT_RUNS["shortcut_gains"]["suite"], smoke=True, device=device)
+        if row["feasible_after_shortcut"] < row["feasible_raw"]:
+            raise AssertionError(f"shortcut_gains_torch: the pass lost feasibility: {row}")
+        return row
+
+    def run_sweep():
+        script = load_script("run_sweep_torch")
+        spec = SCRIPT_RUNS["run_sweep"]
+        rows = script.sweep(script.sweep_scenarios("corridor", spec["worlds"]), spec["sigmas"],
+                            spec["weights"], spec["iterations"], device=device, log=log)
+        if [r["total"] for r in rows] != [spec["worlds"]] * len(rows):
+            raise AssertionError(f"run_sweep_torch: bad rows {rows}")
+        return {"rows": rows}
+
+    def two_walls():
+        spec = SCRIPT_RUNS["two_walls_reliability"]
+        return load_script("two_walls_reliability_torch").reliability(
+            spec["seeds"], spec["restarts"], spec["iterations"], device, log=log)
+
+    def compare_with_reference():
+        script = load_script("compare_with_reference_torch")
+        spec = SCRIPT_RUNS["compare_with_reference"]
+        seeds = range(spec["seeds"])
+        paths, wall = script.ours_run(seeds, spec["iterations"], device, seed)
+        check_finite_paths(torch.as_tensor(paths), (len(seeds), 102, 3),
+                           "compare_with_reference_torch")
+        feasible, lengths = script.evaluate(paths, device)
+        return {"seeds": len(seeds), "iterations": spec["iterations"], "wall_s_batched": wall,
+                "feasible": int(feasible.sum()),
+                "mean_length_feasible": (float(lengths[feasible].mean()) if feasible.any()
+                                         else None), "reference": "skipped"}
+
+    def compare_holonomic():
+        script = load_script("compare_holonomic_torch")
+        spec = SCRIPT_RUNS["compare_holonomic"]
+        seeds = list(range(spec["seeds"]))
+        ours = script.ours_run(seeds, spec["iterations"], device, seed)
+        check_finite_paths(torch.as_tensor(ours[0]), (len(seeds), 102, 2),
+                           "compare_holonomic_torch")
+        return {**script.summary(seeds, ours, device), "iterations": spec["iterations"],
+                "reference": "skipped"}
+
+    for name, fn in (("compare_suites", compare_suites), ("shortcut_gains", shortcut_gains),
+                     ("run_sweep", run_sweep), ("two_walls_reliability", two_walls),
+                     ("compare_with_reference", compare_with_reference),
+                     ("compare_holonomic", compare_holonomic)):
+        line, launches = timed_script(name, fn)
+        log(f"phase 13 script {name}: {line['seconds']:.1f}s")
+        runs.append((f"script_{name}", line, launches))
+    return runs
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of weights, data and noise")
@@ -2571,6 +2874,23 @@ def main() -> int:
     for name in MAIN_PATH:
         launches[name] += demo_launches[name]
     log(f"phase 12: {time.perf_counter() - t0:.1f}s")
+
+    # 13. the merged step and the Jacobi order, then the suite and parity
+    # scripts: their launches join the f32 kernels' counts
+    t0 = time.perf_counter()
+    for line, order, bf16, group_size in MERGED_CELLS:
+        metrics, order_launches = order_solve(device, args.seed, BATCH, STEPS, order, bf16,
+                                              group_size)
+        print(json.dumps({line: {**metrics, "card": card}}), flush=True)
+        for name in MAIN_PATH:
+            launches[name] += order_launches[name]
+    agreement = merged_agreement(device, args.seed)
+    print(json.dumps({"merged_agreement": {**agreement, "card": card}}), flush=True)
+    for line, metrics, script_launches in suite_scripts(device, args.seed):
+        print(json.dumps({line: {**metrics, "card": card}}), flush=True)
+        for name in MAIN_PATH:
+            launches[name] += script_launches[name]
+    log(f"phase 13: {time.perf_counter() - t0:.1f}s")
 
     entries = []
     for name, res in kernel_results.items():

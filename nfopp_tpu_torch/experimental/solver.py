@@ -8,11 +8,15 @@
   (`kernels.collision_terms`).
 - `jacobi_step`: the trajectory update reads the entry field, a reordering
   of the default step.
+- `merged_step`: the Jacobi order's three field passes as one forward and
+  one hand-written backward over the concatenated point set
+  (`experimental/merged_step.py`), in plain PyTorch on [B, M, .] tensors:
+  it launches none of the port's kernels. In the shared-field mode
+  (`run_grouped`) each group steps on its mean field gradient.
 - `use_fused_field_grad`: accepted for the JAX package's interface. On CUDA
   the port's main solver already runs its field passes through the fused
   kernels (`kernels.onf_forward`, `field_grad`, `collision_terms`), so the
   flag selects the same path as leaving it off.
-- `merged_step` is not ported yet (ROADMAP.md section 1, item 16) and raises.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from ..solver.constrained import (
 )
 from ..solver.field import sample_field_points
 from ..solver.schedule import scan_chunked
+from .merged_step import merged_field_and_trajectory
 
 __all__ = ["ExperimentalConstrainedSolver"]
 
@@ -56,18 +61,19 @@ class ExperimentalConstrainedSolver(ConstrainedSolver):
             raise NotImplementedError(
                 "jacobi_step/merged_step require optimize_collision_model_freq == 1"
             )
-        if merged_step:
-            raise NotImplementedError(
-                "merged_step (experimental/merged_step.py) is not ported yet: "
-                "ROADMAP.md section 1, item 16"
-            )
         self.jacobi_step = jacobi_step
+        self.merged_step = merged_step
         self.use_fused_field_grad = use_fused_field_grad
 
-    # --------------------------------------------------------- jacobi order
+    # ------------------------------------------------ jacobi / merged orders
 
     def _field_and_trajectory(self, state, oracle_params, noise, with_field=None,
                               group_size: int = 1):
+        """Both orders train the field every step (the constructor requires
+        optimize_collision_model_freq == 1); group_size > 1 steps each group's
+        field on its mean gradient (JAX's `_step_grouped`)."""
+        if self.merged_step:
+            return merged_field_and_trajectory(self, state, oracle_params, noise, group_size)
         if not self.jacobi_step:
             return super()._field_and_trajectory(state, oracle_params, noise, with_field,
                                                  group_size)

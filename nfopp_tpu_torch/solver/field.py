@@ -75,6 +75,20 @@ def field_sample_pre(
     return FieldSamplePre(coarse, fine, gumbel, random_points)
 
 
+def buffer_log_weights(
+    config: SolverConfig, logits: torch.Tensor, ages: torch.Tensor, floor: bool = True
+) -> torch.Tensor:
+    """Log resampling weight of each replay-buffer candidate [B, M]:
+    log(sigmoid(z) * exp(-decay * age)), plus buffer_weight_floor inside the
+    log when `floor` (the default and Jacobi orders; the merged step resamples
+    without it)."""
+    log_w = F.logsigmoid(logits) - ages * config.buffer_age_decay
+    if floor and config.buffer_weight_floor > 0:
+        floor_w = torch.log(torch.tensor(config.buffer_weight_floor, dtype=torch.float32))
+        log_w = torch.logaddexp(log_w, floor_w.to(log_w.device))
+    return log_w
+
+
 def field_sample_post(
     config: SolverConfig,
     pre: FieldSamplePre,
@@ -85,10 +99,7 @@ def field_sample_post(
     """Resample the replay buffer from scored candidates (weight
     sigmoid(z) * exp(-decay * age) + floor, in log space) and assemble the
     training batch [coarse, buffer, random]."""
-    log_w = F.logsigmoid(logits) - candidate_ages * config.buffer_age_decay
-    if config.buffer_weight_floor > 0:
-        floor = torch.log(torch.tensor(config.buffer_weight_floor, dtype=torch.float32))
-        log_w = torch.logaddexp(log_w, floor.to(log_w.device))
+    log_w = buffer_log_weights(config, logits, candidate_ages)
     idx = gumbel_topk_log_indices(log_w, pre.gumbel, config.collision_point_count)
     new_buffer = torch.gather(candidates, 1, idx[..., None].expand(-1, -1, candidates.shape[-1]))
     new_ages = torch.gather(candidate_ages, 1, idx) + 1.0

@@ -2,15 +2,20 @@
 
 Runs the workload of `chip_smoke.py`'s main path (car scene, run_planner_config
 in f32, or with --bf16 in bf16 as bench.py runs it by default, B problems,
-seeded) on one CUDA card: `--warmup` steps, then
+seeded) on one CUDA card, in the default step order or, with --order, in
+the Jacobi order or the merged field+trajectory step
+(`ExperimentalConstrainedSolver(jacobi_step=True | merged_step=True)`):
+`--warmup` steps, then
 `--steps` steps timed on the host clock, then the same number of steps under
 torch.profiler. The trace's kernel events give the device's busy time per
 step (kernels on the one stream do not overlap), its idle share, and the
-time and launches per step of each kernel. Prints one JSON object; the
-Chrome trace goes to --trace.
+time and launches per step of each kernel, beside the port's own kernels'
+launches per step (`kernels.LAUNCHES`). Prints one JSON object; the Chrome
+trace goes to --trace.
 
     python3 -m nfopp_tpu_torch.tools.profile_step --trace profiles/torch_step_trace.json
     python3 -m nfopp_tpu_torch.tools.profile_step --bf16 --trace profiles/torch_step_trace_bf16.json
+    python3 -m nfopp_tpu_torch.tools.profile_step --order merged --trace profiles/merged.json
 """
 from __future__ import annotations
 
@@ -23,6 +28,8 @@ import time
 
 import torch
 
+from .. import kernels as port_kernels
+from ..experimental import ExperimentalConstrainedSolver
 from ..solver import ConstrainedSolver, run_planner_config
 from ..worlds import rectangle_collision
 from .scene import car_world, card_line
@@ -36,6 +43,9 @@ def main() -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--bf16", action="store_true",
                         help="the field's products in bf16 (compute_dtype='bfloat16')")
+    parser.add_argument("--order", choices=("default", "jacobi", "merged"), default="default",
+                        help="the step order: the default solver, or the experimental "
+                        "jacobi_step / merged_step")
     parser.add_argument("--trace", default="profiles/torch_step_trace.json")
     args = parser.parse_args()
 
@@ -48,16 +58,22 @@ def main() -> int:
     cfg = run_planner_config()
     if args.bf16:
         cfg = cfg._replace(onf=cfg.onf._replace(compute_dtype="bfloat16"))
-    solver = ConstrainedSolver(cfg, rectangle_collision, device=device)
+    if args.order == "default":
+        solver = ConstrainedSolver(cfg, rectangle_collision, device=device)
+    else:
+        solver = ExperimentalConstrainedSolver(cfg, rectangle_collision, device=device,
+                                               **{f"{args.order}_step": True})
     g = torch.Generator(device=device).manual_seed(args.seed)
     state = solver.init_state(g, start, goal, bounds, oracle)
     # warm-up and the timed window use whole chunks of the static schedule
     state, _ = solver.run(state, oracle, args.warmup, g)
     torch.cuda.synchronize()
+    port_kernels.reset_launches()
     t0 = time.perf_counter()
     state, _ = solver.run(state, oracle, args.steps, g)
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) / args.steps * 1e3
+    port_launches = {name: n / args.steps for name, n in port_kernels.LAUNCHES.items() if n}
 
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
@@ -85,6 +101,7 @@ def main() -> int:
     result = {
         "card": card_line(),
         "compute_dtype": cfg.onf.compute_dtype,
+        "order": args.order,
         "batch": args.batch,
         "host_ms_per_step": host_ms,
         "profiled_ms_per_step": profiled_ms,
@@ -95,6 +112,7 @@ def main() -> int:
         "idle_share_profiled_window": 1.0 - busy_us / window_us,
         "idle_share_vs_host_step": 1.0 - busy_us / 1e3 / args.steps / host_ms,
         "kernels_per_step": len(kernels) / args.steps,
+        "port_kernel_launches_per_step": port_launches,
         "launch_calls_per_step": len(launches) / args.steps,
         "host_launch_ms_per_step": sum(e["dur"] for e in launches) / 1e3 / args.steps,
         "top_kernels": [

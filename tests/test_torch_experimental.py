@@ -1,7 +1,8 @@
 """The port's ExperimentalConstrainedSolver (nfopp_tpu_torch.experimental)
 against the JAX package's, with JAX's own random draws handed to the port:
 run_batch in f32 and with a static field stride over 10 steps, one bf16 step
-of the batch-explicit path, jacobi_step, and the validations.
+of the batch-explicit path, jacobi_step, and the validations (merged_step
+has its own file, tests/test_torch_merged_step.py).
 
 Setting of tests/test_run_batch.py: two-walls SE(2) scene, disc robot of
 radius 0.3, N=12 waypoints, K=12 buffer points, R=4 random points, the
@@ -21,6 +22,7 @@ from nfopp_tpu.worlds import CircleOracle as JaxCircleOracle
 from nfopp_tpu.worlds import circle_collision as jax_circle_collision
 from nfopp_tpu_torch import kernels
 from nfopp_tpu_torch.experimental import ExperimentalConstrainedSolver
+from nfopp_tpu_torch.experimental.merged_step import merged_field_and_trajectory
 from nfopp_tpu_torch.models import ONFConfig
 from nfopp_tpu_torch.ops.sampling import GeneratorNoise
 from nfopp_tpu_torch.solver import ConstrainedSolver, SolverConfig, state_from_jax
@@ -274,28 +276,48 @@ def test_run_batch_validations():
         solver.run_batch(three, None, 10, GeneratorNoise(torch.Generator()), problems_per_program=2)
 
 
+def _cpu_oracle():
+    env = two_walls_se2_environment()
+    pts, mask = pad_obstacle_points(env.obstacle_points.astype(np.float32), 32)
+    return CircleOracle(torch.tensor(pts)[None], torch.tensor(mask)[None], torch.tensor([0.3]),
+                        torch.tensor([[0.0, 3.0, 0.0, 3.0]]))
+
+
 def _cpu_state(solver):
     env = two_walls_se2_environment()
     ends = [np.tile(np.asarray(a, np.float32)[None], (BATCH, 1))
             for a in (env.start, env.goal, env.bounds)]
-    pts, mask = pad_obstacle_points(env.obstacle_points.astype(np.float32), 32)
-    oracle = CircleOracle(torch.tensor(pts)[None], torch.tensor(mask)[None], torch.tensor([0.3]),
-                          torch.tensor([[0.0, 3.0, 0.0, 3.0]]))
-    return solver.init_state(torch.Generator().manual_seed(0), *ends, oracle)
+    return solver.init_state(torch.Generator().manual_seed(0), *ends, _cpu_oracle())
 
 
 @pytest.mark.parametrize("flags, error, match", [
     ({"jacobi_step": True, "merged_step": True}, ValueError, "mutually exclusive"),
     ({"merged_step": True, "use_fused_field_grad": True}, ValueError, "mutually exclusive"),
-    ({"merged_step": True}, NotImplementedError, "item 16"),
+    ({"merged_step": True}, None, None),
 ])
 def test_constructor_flags(flags, error, match):
+    """The exclusive flags raise in both packages; merged_step alone builds
+    a solver whose step takes the merged branch (the field, the replay
+    buffer and the trajectory of `merged_field_and_trajectory`)."""
     jcfg, cfg = configs()
-    if error is ValueError:
-        with pytest.raises(ValueError, match=match):
+    if error is not None:
+        with pytest.raises(error, match=match):
             JaxExperimentalSolver(jcfg, jax_circle_collision, **flags)
-    with pytest.raises(error, match=match):
-        ExperimentalConstrainedSolver(cfg, circle_collision, device="cpu", **flags)
+        with pytest.raises(error, match=match):
+            ExperimentalConstrainedSolver(cfg, circle_collision, device="cpu", **flags)
+        return
+    assert JaxExperimentalSolver(jcfg, jax_circle_collision, **flags).merged_step
+    solver = ExperimentalConstrainedSolver(cfg, circle_collision, device="cpu", **flags)
+    assert solver.merged_step and not solver.jacobi_step
+    state = _cpu_state(solver)
+    oracle = _cpu_oracle()
+    got, _ = solver.step_static(state, oracle, GeneratorNoise(torch.Generator().manual_seed(4)),
+                                with_reparam=False)
+    want, _, _ = merged_field_and_trajectory(solver, state, oracle,
+                                             GeneratorNoise(torch.Generator().manual_seed(4)))
+    for a, b in zip(tree_leaves((got.field_params, got.buffer_points, got.trajectory)),
+                    tree_leaves((want.field_params, want.buffer_points, want.trajectory))):
+        assert torch.equal(a, b)
 
 
 def test_field_freq_validations():

@@ -318,11 +318,48 @@ def test_straight_corridor_plan_matches_jax():
         final_cost(want, blocked, start, goal, jconfig), rel=1e-3)
 
 
+# the forward error of one f32 Gauss-Newton step against an f64 solve of the
+# same system (test_one_gauss_newton_iteration_matches_jax; cond(J^T J) ~3e7)
+STEP_FORWARD_ERROR = 1e-3
+
+
+def gauss_newton_run(sdf, starts, goals, config, init, dtype=torch.float32):
+    """config.iterations of _gn_step on the f32 problem, computed in `dtype`:
+    (final states [B, N, 4], accepted [B, iterations], the norms of the
+    accepted steps [B, iterations], the per-step forward errors [B, iterations]
+    of the f32 solve against an f64 solve of the same system)."""
+    flat, problem = gpmp2._setup(sdf, starts, goals, config, init)
+    cast = lambda x: x.to(dtype)
+    problem = gpmp2._Problem(cast(problem.start), cast(problem.goal),
+                             gpmp2.SDF(*map(cast, problem.sdf)), cast(problem.whitener))
+    flat = cast(flat)
+    accepted, norms, forward = [], [], []
+    for _ in range(config.iterations):
+        _, jtj, jtr = gpmp2._normal_equations(flat, problem, config)
+        step = gpmp2._step(jtj, jtr, config)
+        damped = jtj + config.damping * torch.diag_embed(torch.diagonal(jtj, dim1=1, dim2=2))
+        forward.append(backward_and_forward_error(
+            damped + 1e-8 * torch.eye(jtj.shape[-1], dtype=dtype), jtr, step)[1])
+        new = gpmp2._gn_step(flat, problem, config)
+        moved = (new != flat).any(dim=1)
+        accepted.append(moved)
+        norms.append(torch.where(moved, (new - flat).double().norm(dim=1), 0.0))
+        flat = new
+    return (flat.reshape(flat.shape[0], config.num_steps, 4), torch.stack(accepted, 1),
+            torch.stack(norms, 1), torch.stack(forward, 1))
+
+
 def test_costs_never_rise_and_batch_equals_each_problem_alone():
     """Three random worlds with a wavefront-like bent init: the cost of every
     problem never rises over the iterations (the accept rule), and the
-    batch's plans equal each problem solved alone (atol 1e-5: the batched
-    products may sum in another order than the single ones)."""
+    batch's plans equal each problem solved alone: both accept the same
+    steps as an f64 run of the same problem, and each lies within the f32
+    error of that run. The batched products may sum in another order than
+    the single ones, so the two f32 runs are held against f64, not against
+    each other: every f32 step is within STEP_FORWARD_ERROR of its f64
+    solve (checked), so after K accepted steps the iterate is within
+    STEP_FORWARD_ERROR * sum of the f64 steps' norms, compounded by
+    (1 + STEP_FORWARD_ERROR) per iteration."""
     config = gpmp2.GPMP2Config(num_steps=20, iterations=6, epsilon=1.5)
     worlds = [random_world(s, (16, 16)) & ~np.eye(16, dtype=bool) for s in range(3)]
     sdf = gpmp2.stack_sdfs([gpmp2.build_sdf(w, 1.0, device="cpu") for w in worlds])
@@ -345,10 +382,24 @@ def test_costs_never_rise_and_batch_equals_each_problem_alone():
 
     batch = gpmp2.gpmp2_plan(sdf, starts, goals, config, init)
     assert torch.equal(batch, flat.reshape(3, 20, 4))
+    ran, batch_accepted, _, batch_forward = gauss_newton_run(sdf, starts, goals, config, init)
+    assert torch.equal(ran, batch)
+    exact, exact_accepted, exact_norms, _ = gauss_newton_run(sdf, starts, goals, config, init,
+                                                             torch.float64)
+    assert torch.equal(batch_accepted, exact_accepted)
+    assert exact_accepted[:, 0].all()
+    growth = (1 + STEP_FORWARD_ERROR) ** config.iterations
+    bound = STEP_FORWARD_ERROR * exact_norms.sum(dim=1) * growth
     for b in range(3):
         single = gpmp2.stack_sdfs([gpmp2.build_sdf(worlds[b], 1.0, device="cpu")])
-        alone = gpmp2.gpmp2_plan(single, starts[b:b + 1], goals[b:b + 1], config, init[b:b + 1])
-        np.testing.assert_allclose(alone[0].numpy(), batch[b].numpy(), atol=1e-5)
+        args = (single, starts[b:b + 1], goals[b:b + 1], config, init[b:b + 1])
+        alone = gpmp2.gpmp2_plan(*args)
+        ran, accepted, _, forward = gauss_newton_run(*args)
+        assert torch.equal(ran, alone)
+        assert torch.equal(accepted[0], exact_accepted[b])
+        for run, steps in ((alone[0], forward[0]), (batch[b], batch_forward[b])):
+            assert (steps <= STEP_FORWARD_ERROR).all(), steps
+            assert (run.double() - exact[b]).norm() <= bound[b]
 
 
 def test_default_init_is_the_straight_line():

@@ -11,6 +11,9 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 SCRIPTS = ("run_benchmark_torch", "replan_latency_torch", "dynamic_replan_demo_torch",
            "anytime_server_torch")
 COMPARISON_SCRIPTS = ("run_gpmp2_torch", "analyze_results_torch", "run_planner_torch")
+SUITE_SCRIPTS = ("compare_suites_torch", "shortcut_gains_torch", "run_sweep_torch",
+                 "two_walls_reliability_torch", "compare_with_reference_torch",
+                 "compare_holonomic_torch")
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|optax|flax|nfopp_tpu)(\.|\s|$)", re.M)
 
 
@@ -35,7 +38,7 @@ def test_importing_the_port_loads_no_jax():
 
 def test_no_jax_import_statements():
     files = sorted((ROOT / "nfopp_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
-        ROOT / "scripts" / f"{name}.py" for name in SCRIPTS + COMPARISON_SCRIPTS]
+        ROOT / "scripts" / f"{name}.py" for name in SCRIPTS + COMPARISON_SCRIPTS + SUITE_SCRIPTS]
     assert len(files) > 20
     for path in files:
         match = FORBIDDEN.search(path.read_text())
@@ -45,6 +48,8 @@ def test_no_jax_import_statements():
 @pytest.mark.parametrize("module", [
     "nfopp_tpu_torch.experimental",
     "nfopp_tpu_torch.experimental.solver",
+    "nfopp_tpu_torch.experimental.merged_step",
+    "nfopp_tpu_torch.tools.profile_step",
     "nfopp_tpu_torch.kernels.onf_multi",
     "nfopp_tpu_torch.kernels.field_grad_multi",
     "nfopp_tpu_torch.solver.tracking",
@@ -132,6 +137,32 @@ def test_the_comparison_scripts_load_no_jax(name):
         "('jax', 'jaxlib', 'optax', 'flax', 'nfopp_tpu'))\n"
         "assert not bad, bad\n"
         "assert 'matplotlib' not in sys.modules\n"
+    )
+    result = subprocess.run([sys.executable, "-I", "-c", code], capture_output=True, text=True,
+                            timeout=120)
+    assert result.returncode == 0, result.stderr
+
+
+@pytest.mark.parametrize("name", SUITE_SCRIPTS)
+def test_the_suite_scripts_load_no_jax(name):
+    """Each suite and parity script, loaded as a module as chip_smoke.py
+    loads it, with what its functions import (shortcut_gains_torch.py
+    imports compare_suites_torch.py and run_benchmark_torch.py, never the
+    JAX scripts)."""
+    code = (
+        "import importlib.util, sys\n"
+        f"path = {str(ROOT / 'scripts')!r} + '/{name}.py'\n"
+        f"spec = importlib.util.spec_from_file_location({name!r}, path)\n"
+        "module = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(module)\n"
+        f"sys.path.insert(0, {str(ROOT / 'scripts')!r})\n"
+        "import compare_suites_torch, run_benchmark_torch\n"
+        "import nfopp_tpu_torch.bench.runner, nfopp_tpu_torch.parallel\n"
+        "assert callable(module.main)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'optax', 'flax', 'nfopp_tpu', 'compare_suites', "
+        "'run_benchmark', 'shortcut_gains'))\n"
+        "assert not bad, bad\n"
     )
     result = subprocess.run([sys.executable, "-I", "-c", code], capture_output=True, text=True,
                             timeout=120)
