@@ -112,6 +112,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
      in one batch),
      compare_holonomic_torch (4 seeds); the launches of the Jacobi cell and
      of the scripts join the f32 kernels' counts.
+ 14. program capture (solver.with_aot, utils/aot.py: each 10-step chunk of
+     the static schedule captured once into a CUDA graph and replayed):
+     (a) phases 4 and 6 again, f32 and bf16, B=256 x 1000 steps, same seed
+     and inputs, the program captured before the timed window; each kernel
+     of the path counted 1000 times through the replays, feasible >= 0.98,
+     and the final state bit-identical to the eager phase's; (b) phase 8's
+     grouped path through BatchPlanner(aot_prefix=...), held the same way;
+     (c) phase 11g's fleet service with replan_latency_torch's --aot, its
+     cycle p50 / p99 beside 11g's; (d) tools/profile_step.py eager and with
+     --aot, f32 and bf16: host and busy ms per step, idle share, graph
+     replays per step; (e) scripts/profile_step2_torch.py's parts of the
+     step at B=256, eager and captured. The launches of (a)-(c) join the
+     kernels' counts; (d) and (e) time the step and are not counted.
 After each solve of phases 7-10 (the tracked and grouped paths, the holonomic
 path, both planners and the suite), every kernel of that path is held against
 its plain version on the inputs the path's next step gives it, at the path's
@@ -1215,11 +1228,15 @@ def bf16_config(cfg):
     return cfg._replace(onf=cfg.onf._replace(compute_dtype="bfloat16"))
 
 
-def solve(device, seed: int, batch: int, steps: int, path: tuple):
+def solve(device, seed: int, batch: int, steps: int, path: tuple, aot: str | None = None):
     """The B x steps car-scene solve through the kernels of `path`: the f32 or
     bf16 main path (ConstrainedSolver.run) or the bf16 batch path (run_batch,
     P=8). Each kernel of `path` must launch once per step and no other kernel
-    at all."""
+    at all. With `aot` (a program prefix; main paths only) the solver runs as
+    replays of its captured chunk program (`solver.with_aot`), captured
+    before the timed window by one chunk from another generator, and the
+    launches are counted through the replays. Returns the metrics, the
+    launches and the final state."""
     import torch
 
     from nfopp_tpu_torch import kernels
@@ -1233,8 +1250,13 @@ def solve(device, seed: int, batch: int, steps: int, path: tuple):
     cfg = run_planner_config() if path == MAIN_PATH else bf16_config(run_planner_config())
     solver_cls = ExperimentalConstrainedSolver if bf16_batch else ConstrainedSolver
     solver = solver_cls(cfg, rectangle_collision, device=device)
+    if aot is not None:
+        solver = solver.with_aot(aot)
     g = torch.Generator(device=device).manual_seed(seed)
     state = solver.init_state(g, start, goal, bounds, oracle)
+    if aot is not None:
+        solver.run(state, oracle, cfg.reparametrize_trajectory_freq,
+                   torch.Generator(device=device).manual_seed(seed + 1))
     torch.cuda.synchronize()
 
     kernels.reset_launches()
@@ -1263,9 +1285,11 @@ def solve(device, seed: int, batch: int, steps: int, path: tuple):
         "mean_length_feasible": float(length[~collides].mean()) if feasible > 0 else None,
         "final_field_loss": float(aux.field_loss[:, -1].mean()),
     }
+    if aot is not None:
+        metrics["programs"] = solver.aot_events
     if feasible < 0.98:
         raise AssertionError(f"feasible fraction {feasible} below the 0.98 floor")
-    return metrics, launches
+    return metrics, launches, state
 
 
 def check_launches(launches: dict, path: tuple, steps: int, what: str,
@@ -1449,14 +1473,18 @@ def tracked_solve(device, seed: int, batch: int):
     return metrics, launches, (solver, result.state, oracle, g)
 
 
-def grouped_solve(device, seed: int, batch: int, steps: int):
+def grouped_solve(device, seed: int, batch: int, steps: int, aot_prefix: str | None = None):
     """Phase 8: the shared-field portfolio, init_state(group_size=8) and
     run_grouped_with_tracking in f32 on the car scene, `batch` problems (batch
     / 8 groups of 8 restarts of the car query); each f32 kernel launches once
-    per step, and every group's replicas end bit-identical."""
+    per step, and every group's replicas end bit-identical. With
+    `aot_prefix` (phase 14b) the solve goes through
+    `BatchPlanner(aot_prefix=...)`, its program captured before the timed
+    window. Returns the metrics, the launches and the TrackingResult."""
     import torch
 
     from nfopp_tpu_torch import kernels
+    from nfopp_tpu_torch.parallel import BatchPlanner
     from nfopp_tpu_torch.solver import (
         ConstrainedSolver,
         run_grouped_with_tracking,
@@ -1470,14 +1498,24 @@ def grouped_solve(device, seed: int, batch: int, steps: int):
     g = torch.Generator(device=device).manual_seed(seed)
     state = solver.init_state(g, start, goal, bounds, oracle, group_size=GROUP_SIZE)
     check_replicas((state.field_params, state.field_opt_state), GROUP_SIZE)
+    planner = None
+    if aot_prefix is not None:
+        planner = BatchPlanner(solver, aot_prefix=aot_prefix)
+        planner.run_grouped(state, oracle, solver.config.reparametrize_trajectory_freq,
+                            GROUP_SIZE, torch.Generator(device=device).manual_seed(seed + 1))
     torch.cuda.synchronize()
 
     kernels.reset_launches()
     t0 = time.perf_counter()
-    result = run_grouped_with_tracking(
-        solver, state, oracle, GROUP_SIZE, g, max_iterations=steps,
-        min_iterations=ANYTIME["min_iterations"], check_freq=ANYTIME["check_freq"],
-        samples_per_segment=ANYTIME["samples_per_segment"])
+    if planner is None:
+        result = run_grouped_with_tracking(
+            solver, state, oracle, GROUP_SIZE, g, max_iterations=steps,
+            min_iterations=ANYTIME["min_iterations"], check_freq=ANYTIME["check_freq"],
+            samples_per_segment=ANYTIME["samples_per_segment"])
+    else:
+        result = planner.solve_grouped_tracked(
+            state, oracle, GROUP_SIZE, g, max_iterations=steps,
+            min_iterations=ANYTIME["min_iterations"], check_freq=ANYTIME["check_freq"])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
@@ -1498,10 +1536,11 @@ def grouped_solve(device, seed: int, batch: int, steps: int):
                                  if feasible > 0 else None),
         "replicas_bit_identical": True,
         "kernels_held": held,
+        **({"programs": planner.aot_events} if planner is not None else {}),
     }
     if feasible < 0.98:
         raise AssertionError(f"grouped path: feasible fraction {feasible} below the 0.98 floor")
-    return metrics, launches
+    return metrics, launches, result
 
 
 def two_walls_world(batch: int, device):
@@ -2109,14 +2148,16 @@ def anytime_server(device, seed: int) -> tuple[dict, dict]:
     return {**result, "pool_rounds": f["pool_rounds"], "kernels_held": held}, launches
 
 
-def fleet_service(device, seed: int) -> tuple[dict, dict]:
+def fleet_service(device, seed: int, aot: bool = False) -> tuple[dict, dict]:
     """Phase 11g: the online fleet node, FleetReplanningService, through
     scripts/replan_latency_torch.py's host fleet loop (FLEET_SERVICE: 256
     robots on the car scene, f32, one shared field per 128, 20-step chunks
     within a 0.1 s budget, a warm-up and 4 timed cycles; between cycles each
     robot follows its plan). Holds each f32 kernel once per step run, every
     group's replicas bit-identical, and a finite path for every active
-    robot; then every kernel on one group's inputs."""
+    robot; then every kernel on one group's inputs. With `aot` (phase 14c)
+    the script's --aot: the bursts replay captured chunk programs, the first
+    captured in the warm-up cycle."""
     from types import SimpleNamespace
 
     import numpy as np
@@ -2127,7 +2168,7 @@ def fleet_service(device, seed: int) -> tuple[dict, dict]:
 
     latency = load_script("replan_latency_torch")
     f = FLEET_SERVICE
-    solver, oracle, env = latency.car_setup(device)
+    solver, oracle, env = latency.car_setup(device, aot=aot)
     args = SimpleNamespace(fleet=f["robots"], group_size=f["group_size"], timeout=f["budget"],
                            steps_per_chunk=f["steps_per_chunk"], cycles=f["cycles"], seed=seed)
     torch.cuda.synchronize()
@@ -2145,7 +2186,7 @@ def fleet_service(device, seed: int) -> tuple[dict, dict]:
                              oracle, seed + 18)
     return {**result, "group_size": f["group_size"], "steps_per_chunk": f["steps_per_chunk"],
             "compute_dtype": "float32", "replicas_bit_identical": True,
-            "kernels_held": held}, launches
+            "kernels_held": held, **({"programs": solver.aot_events} if aot else {})}, launches
 
 
 # phase 12, the paper's comparison: GPMP2 (baselines/gpmp2.py) on phase 10's
@@ -2739,6 +2780,51 @@ def suite_scripts(device, seed: int) -> list:
     return runs
 
 
+# phase 14, program capture: the step as one captured CUDA graph per chunk
+# (solver.with_aot, utils/aot.py)
+PROFILE = {"warmup": 20, "steps": 20}  # tools/profile_step.py's defaults, at BATCH
+PARTS_STEPS = 20  # calls per part and mode of scripts/profile_step2_torch.py
+
+
+def same_state(what: str, eager, captured) -> dict:
+    """Hold a captured run's result (its final trajectories, field parameters
+    and every other leaf) bit for bit against the eager run's; raises naming
+    each leaf that differs and by how much."""
+    import torch
+
+    from nfopp_tpu_torch.utils.tree import tree_named_leaves
+
+    pairs = list(zip(tree_named_leaves(eager), tree_named_leaves(captured)))
+    differ = {name: float((a.double() - b.double()).abs().max())
+              for (name, a), (_, b) in pairs if not torch.equal(a, b)}
+    if differ:
+        raise AssertionError(f"{what}: the captured run differs from the eager run: {differ}")
+    return {"leaves": len(pairs), "bit_identical": True}
+
+
+def profile_orders(seed: int) -> dict:
+    """Phase 14d: tools/profile_step.py eagerly and with --aot, in f32 and
+    bf16, at BATCH: host ms and device busy ms per step, the idle share,
+    kernels, launch calls and graph replays per step."""
+    import tempfile
+    from types import SimpleNamespace
+
+    from nfopp_tpu_torch.tools import profile_step
+
+    keys = ("host_ms_per_step", "device_busy_ms_per_step", "idle_share_vs_host_step",
+            "kernels_per_step", "launch_calls_per_step", "graph_replays_per_step",
+            "port_kernel_launches_per_step")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for bf16, aot in itertools.product((False, True), (False, True)):
+            result = profile_step.profile(SimpleNamespace(
+                batch=BATCH, seed=seed, bf16=bf16, order="default", aot=aot,
+                trace=pathlib.Path(tmp) / "trace.json", **PROFILE))
+            out[f"{'bf16' if bf16 else 'f32'}_{'captured' if aot else 'eager'}"] = {
+                k: result[k] for k in keys}
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of weights, data and noise")
@@ -2787,7 +2873,8 @@ def main() -> int:
     # 4. main path
     agreement, drift = agreement_check(device, args.seed)
     log(f"agreement CUDA vs CPU, one step of 4 problems: {agreement}")
-    metrics, launches = solve(device, args.seed, BATCH, STEPS, MAIN_PATH)
+    metrics, launches, main_state = solve(device, args.seed, BATCH, STEPS, MAIN_PATH)
+    eager_seconds = {"f32": metrics["seconds"]}
     metrics.update(build_s=build_s, agreement_max_abs=agreement, card=card,
                    drift_trajectory={d["step"]: d["trajectory"] for d in drift})
     print(json.dumps({"main_path": metrics}), flush=True)
@@ -2795,7 +2882,7 @@ def main() -> int:
     # 5. bf16 batch path
     agreement = bf16_agreement_check(device, args.seed, batch_path=True)
     log(f"agreement CUDA vs CPU, one bf16 batch step of 4 problems: {agreement}")
-    batch_metrics, batch_launches = solve(device, args.seed, BATCH, STEPS, BATCH_PATH)
+    batch_metrics, batch_launches, _ = solve(device, args.seed, BATCH, STEPS, BATCH_PATH)
     batch_metrics.update(problems_per_program=PROBLEMS_PER_PROGRAM[-1], compute_dtype="bfloat16",
                          agreement_max_abs=agreement, card=card)
     print(json.dumps({"batch_path": batch_metrics}), flush=True)
@@ -2804,7 +2891,9 @@ def main() -> int:
     # 6. bf16 main path
     agreement = bf16_agreement_check(device, args.seed, batch_path=False)
     log(f"agreement CUDA vs CPU, one bf16 main-path step of 4 problems: {agreement}")
-    bf16_metrics, bf16_launches = solve(device, args.seed, BATCH, STEPS, MAIN_PATH_BF16)
+    bf16_metrics, bf16_launches, bf16_state = solve(device, args.seed, BATCH, STEPS,
+                                                    MAIN_PATH_BF16)
+    eager_seconds["bf16"] = bf16_metrics["seconds"]
     bf16_metrics.update(compute_dtype="bfloat16", agreement_max_abs=agreement, card=card)
     print(json.dumps({"main_path_bf16": bf16_metrics}), flush=True)
     # the collision kernels' bf16 mode runs on both bf16 paths; its launches
@@ -2817,7 +2906,7 @@ def main() -> int:
     print(json.dumps({"tracked_path": {**tracked, "card": card}}), flush=True)
 
     # 8. shared-field grouped path, f32
-    grouped, _ = grouped_solve(device, args.seed, BATCH, STEPS)
+    grouped, _, grouped_result = grouped_solve(device, args.seed, BATCH, STEPS)
     print(json.dumps({"grouped_path": {**grouped, "card": card}}), flush=True)
 
     # 9. holonomic path, planner API, checkpoint
@@ -2891,6 +2980,43 @@ def main() -> int:
         for name in MAIN_PATH:
             launches[name] += script_launches[name]
     log(f"phase 13: {time.perf_counter() - t0:.1f}s")
+
+    # 14. program capture: the main paths, the grouped path and the fleet
+    # service as replays of captured chunk programs, held against their eager
+    # phases; their launches join the kernels' counts
+    t0 = time.perf_counter()
+    for line, path, eager_state, dtype in (("captured_path", MAIN_PATH, main_state, "f32"),
+                                           ("captured_path_bf16", MAIN_PATH_BF16, bf16_state,
+                                            "bf16")):
+        captured, captured_launches, captured_state = solve(device, args.seed, BATCH, STEPS,
+                                                            path, aot=f"car-{dtype}")
+        captured.update(against_eager=same_state(line, eager_state, captured_state),
+                        eager_seconds=eager_seconds[dtype],
+                        launches={name: captured_launches[name] for name in path}, card=card)
+        print(json.dumps({line: captured}), flush=True)
+        for name in path:
+            launches[name] += captured_launches[name]
+    del main_state, bf16_state
+    captured, captured_launches, captured_result = grouped_solve(device, args.seed, BATCH, STEPS,
+                                                                 aot_prefix="grouped")
+    captured.update(against_eager=same_state("captured grouped path", grouped_result,
+                                             captured_result),
+                    eager_seconds=grouped["seconds"],
+                    launches={name: captured_launches[name] for name in MAIN_PATH}, card=card)
+    print(json.dumps({"captured_grouped_path": captured}), flush=True)
+    del grouped_result, captured_result
+    service_aot, service_aot_launches = fleet_service(device, args.seed, aot=True)
+    print(json.dumps({"captured_fleet_service": {
+        **service_aot, "eager": {k: service[k] for k in ("p50_ms", "p99_ms", "mean_steps_per_cycle")},
+        "card": card}}), flush=True)
+    for counted in (captured_launches, service_aot_launches):
+        for name in MAIN_PATH:
+            launches[name] += counted[name]
+    print(json.dumps({"step_profiles": {**profile_orders(args.seed), "card": card}}), flush=True)
+    parts = load_script("profile_step2_torch").profile_parts(device, BATCH, PARTS_STEPS, args.seed)
+    print(json.dumps({"step_parts": {"batch": BATCH, "calls": PARTS_STEPS, "parts": parts,
+                                     "card": card}}), flush=True)
+    log(f"phase 14: {time.perf_counter() - t0:.1f}s")
 
     entries = []
     for name, res in kernel_results.items():

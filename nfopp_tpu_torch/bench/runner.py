@@ -110,6 +110,7 @@ def run_grid_suite(
     oracle_fn=None,
     obstacle_segments: list | None = None,
     device="cuda",
+    aot: bool = False,
 ) -> SuiteResult:
     """Solve every scenario in one batch on `device`; scenarios must share
     grid shape.
@@ -148,6 +149,10 @@ def run_grid_suite(
     geometry (e.g. worlds.oracle.PolygonOracle / polygon_collision); the
     wavefront initializer still seeds from the rasterized grid, and every
     solve, evaluation and shortcut check uses the exact oracle.
+
+    aot=True runs every solve as replays of captured chunk programs
+    (`BatchPlanner(aot_prefix="suite")`) and records their `aot_events` in
+    the log's suite settings.
     """
     if parameters is None:
         parameters = DEFAULT_PARAMETERS
@@ -162,7 +167,9 @@ def run_grid_suite(
     config = config_from_parameters(parameters)
     oracle_fn = oracle_fn if oracle_fn is not None else grid_collision
     solver = ConstrainedSolver(config, oracle_fn, device=device)
-    planner = BatchPlanner(solver)
+    # aot=True runs the solves as replays of captured chunk programs
+    # (utils/aot.py; keys carry source, config and shape identity)
+    planner = BatchPlanner(solver, aot_prefix="suite" if aot else None)
     device = solver.device
 
     grid_oracles = _stack_oracles([s.oracle(footprint_radius, device) for s in scenarios])
@@ -293,6 +300,7 @@ def run_grid_suite(
             "restart_rounds": restart_rounds,
             "restart_rounds_used": rounds_used,
             "stop_on_plateau": stop_on_plateau,
+            **({"aot_events": planner.aot_events} if aot else {}),
         },
     })
     goals_np = goals.cpu().numpy()

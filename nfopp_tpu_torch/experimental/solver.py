@@ -65,6 +65,16 @@ class ExperimentalConstrainedSolver(ConstrainedSolver):
         self.merged_step = merged_step
         self.use_fused_field_grad = use_fused_field_grad
 
+    def with_aot(self, prefix: str):
+        """Only the default order is captured yet: the Jacobi and merged
+        orders and `run_batch` run eagerly (their capture is queued)."""
+        if self.jacobi_step or self.merged_step or self.use_fused_field_grad:
+            raise NotImplementedError(
+                "with_aot captures the default step order only; the jacobi_step, merged_step "
+                "and use_fused_field_grad variants run eagerly"
+            )
+        return super().with_aot(prefix)
+
     # ------------------------------------------------ jacobi / merged orders
 
     def _field_and_trajectory(self, state, oracle_params, noise, with_field=None,

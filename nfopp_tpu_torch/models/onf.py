@@ -23,12 +23,14 @@ import numpy as np
 import torch
 
 from ..utils.device import check_device
+from ..utils.tree import tree_leaves
 
 __all__ = [
     "ONFConfig",
     "init_onf_params",
     "onf_apply",
     "angle_encode",
+    "onf_param_count",
     "params_from_jax",
 ]
 
@@ -180,3 +182,9 @@ def params_from_jax(np_params: dict, device="cuda") -> dict:
     if "angle_biases" in np_params:
         out["angle_biases"] = convert(np_params["angle_biases"])
     return out
+
+
+def onf_param_count(config: ONFConfig = ONFConfig()) -> int:
+    """Parameters of one field (`models/onf.py:156-158`; 33,141 for the default)."""
+    params = init_onf_params(torch.Generator().manual_seed(0), config, 1, "cpu")
+    return sum(p.numel() for p in tree_leaves(params))

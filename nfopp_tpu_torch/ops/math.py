@@ -4,6 +4,7 @@ Paths are [..., M, d] with the sequence on the second-to-last axis.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -44,15 +45,22 @@ def linspace(start: torch.Tensor, stop: torch.Tensor, num: int) -> torch.Tensor:
     (start * (1 - s) + stop * s, s = i / (num - 1) in f32, exact endpoint).
     s is divided on the CPU: CUDA's division by a scalar multiplies by its
     reciprocal, which can round differently, so s is the same on every
-    device."""
+    device. s is kept per (num, device), so a call copies nothing from the
+    host after the first."""
     start = torch.as_tensor(start, dtype=torch.float32)
     stop = torch.as_tensor(stop, dtype=torch.float32, device=start.device)
     if num == 1:
         return start[..., None]
-    div = num - 1
-    step = (torch.arange(div, dtype=torch.float32) / div).to(start.device)
+    step = _fractions(num - 1, start.device)
     out = start[..., None] * (1 - step) + stop[..., None] * step
     return torch.cat([out, stop[..., None]], dim=-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _fractions(div: int, device: torch.device) -> torch.Tensor:
+    """i / div for i < div, divided on the CPU, on `device`; built once per
+    (div, device) and shared (never written to)."""
+    return (torch.arange(div, dtype=torch.float32) / div).to(device)
 
 
 def dense_path(full_path: torch.Tensor, samples_per_segment: int) -> torch.Tensor:

@@ -9,9 +9,10 @@ solver's `init_state`, `run`, `run_grouped` and the tracked loops of
 `solver.tracking`. Where JAX takes a PRNG key, the port takes a
 `torch.Generator`: `init_batch` draws every problem's init from it, and the
 solves draw their noise from the generator they are given, so problem i's
-random stream depends on its batch (as everywhere in the port). The mesh
-(`parallel/mesh.py`) and the AOT executable store (`aot_prefix`) are not
-ported.
+random stream depends on its batch (as everywhere in the port).
+`aot_prefix` runs the solves as replays of captured chunk programs
+(`solver.with_aot`, `utils/aot.py`), where JAX's loads compiled executables
+from its AOT store. The mesh (`parallel/mesh.py`) is not ported.
 """
 from __future__ import annotations
 
@@ -52,15 +53,21 @@ class BatchPlanner:
     All array arguments carry a leading batch axis; oracle parameters are
     batched too (per-problem worlds, or a leading axis of 1 for one world).
     `device=None` takes the solver's device; any other must be it.
+    `aot_prefix` runs the solves through captured chunk programs.
     """
 
     device_count = 1  # problems are padded to a multiple of this (JAX: the mesh size)
 
-    def __init__(self, solver, device=None):
-        self.solver = solver
+    def __init__(self, solver, device=None, aot_prefix: str | None = None):
         self.device = solver.device if device is None else check_device(device, "BatchPlanner")
         if self.device != solver.device:
             raise ValueError(f"BatchPlanner on {self.device} for a solver on {solver.device}")
+        # aot_prefix routes every solve (run, run_grouped, the tracked loops)
+        # through captured chunk programs keyed by prefix, solver config,
+        # group size, dtype and argument shapes; aot_events lists each program
+        # resolved, {"program", "loaded", "seconds"}, as JAX's
+        self.solver = solver if aot_prefix is None else solver.with_aot(aot_prefix)
+        self.aot_events: list[dict] = [] if aot_prefix is None else self.solver.aot_events
 
     def _put(self, x: Any) -> Any:
         """An array (tensor, numpy, list) or a tree of tensors (an oracle) on

@@ -11,6 +11,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from ..utils.device import device_constant
 from ..utils.tree import tree_leaves, tree_map
 
 __all__ = ["AdamState", "adam_init", "adam_update"]
@@ -38,8 +39,8 @@ def adam_update(
     """One Adam step for a batch of problems: (new params, new state)."""
     count = state.count + 1
     steps = count.to(torch.float32)
-    bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=steps.device), steps)
-    bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=steps.device), steps)
+    bc1 = 1 - torch.pow(device_constant(b1, steps.device), steps)
+    bc2 = 1 - torch.pow(device_constant(b2, steps.device), steps)
     mu = tree_map(lambda g, m: (1 - b1) * g + b1 * m, grads, state.mu)
     nu = tree_map(lambda g, v: (1 - b2) * (g * g) + b2 * v, grads, state.nu)
 

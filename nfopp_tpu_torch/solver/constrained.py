@@ -25,6 +25,7 @@ field gradient. The run loop and the field update are shared with
 """
 from __future__ import annotations
 
+import copy
 from typing import Any, Callable, NamedTuple
 
 import numpy as np
@@ -47,7 +48,7 @@ from ..ops.reparametrize import (
 )
 from ..ops.sampling import GeneratorNoise, uniform_box_points
 from ..utils.device import check_device
-from ..utils.tree import tree_leaves, tree_map, tree_where
+from ..utils.tree import tree_copy_, tree_leaves, tree_map, tree_where
 from .adam import AdamState, adam_init, adam_update
 from .config import SolverConfig
 from .field import field_loss_and_grad, sample_field_points
@@ -128,6 +129,19 @@ class StepAux(NamedTuple):
 
 def _as_noise(noise):
     return GeneratorNoise(noise) if isinstance(noise, torch.Generator) else noise
+
+
+def _program_generator(noise) -> torch.Generator:
+    """The generator a captured chunk program draws from: `noise` itself or
+    the one a `GeneratorNoise` wraps."""
+    generator = noise.generator if isinstance(noise, GeneratorNoise) else noise
+    if not isinstance(generator, torch.Generator):
+        raise ValueError(
+            f"a captured run draws its noise from a torch.Generator on the card, not a "
+            f"{type(noise).__name__}: pass torch.Generator(device='cuda') (seeded), or run "
+            "the solver without with_aot"
+        )
+    return generator
 
 
 class _FieldSolver:
@@ -289,26 +303,103 @@ class _FieldSolver:
         With num_steps a multiple of reparametrize_trajectory_freq and every
         problem at the start of a chunk (step_count % freq == 0, as after
         init_state / update_* / set_boundaries / retarget) the schedule is
-        static (`scan_chunked`); otherwise every step decides from step_count
-        (`step`). Reading step_count costs one device sync per call.
+        static (`scan_chunked`, or the captured chunk program of a solver made
+        by `with_aot`); otherwise every step decides from step_count (`step`).
+        Reading step_count costs one device sync per call.
         """
-        noise = _as_noise(noise)
         freq = self.config.reparametrize_trajectory_freq
         aligned = freq > 1 and bool((state.step_count % freq == 0).all())
-        if not aligned or num_steps % freq != 0:
-            aux = []
-            for _ in range(num_steps):
-                state, a = self.step(state, oracle_params, noise)
-                aux.append(a)
-        else:
-            stride = self._static_field_stride()
-
-            def step_fn(s, with_reparam, with_field):
-                return self.step_static(s, oracle_params, noise, with_reparam,
-                                        with_field if stride > 1 else None)
-
-            state, aux = scan_chunked(step_fn, state, num_steps, freq, field_stride=stride)
+        if aligned and num_steps % freq == 0:
+            return self._static_run(state, oracle_params, num_steps, noise)
+        noise = _as_noise(noise)
+        aux = []
+        for _ in range(num_steps):
+            state, a = self.step(state, oracle_params, noise)
+            aux.append(a)
         return state, StepAux(*(torch.stack(xs, dim=1) for xs in zip(*aux)))
+
+    def _static_run(self, state, oracle_params: Any, num_steps: int, noise, group_size: int = 1):
+        """`num_steps` steps (a multiple of the reparametrization freq) of the
+        static schedule from a chunk's start: eagerly, or as replays of the
+        captured chunk program for a solver made by `with_aot`."""
+        if self.aot_prefix is not None:
+            return self._run_program(state, oracle_params, num_steps, noise, group_size)
+        return self._chunks(state, oracle_params, num_steps, noise, group_size)
+
+    def _chunks(self, state, oracle_params: Any, num_steps: int, noise, group_size: int):
+        """`num_steps` steps of `scan_chunked`'s schedule; aux stacked [B, num_steps]."""
+        stride = self._static_field_stride()
+
+        def step_fn(s, with_reparam, with_field):
+            return self.step_static(s, oracle_params, noise, with_reparam,
+                                    with_field if stride > 1 else None, group_size)
+
+        state, aux = scan_chunked(step_fn, state, num_steps,
+                                  self.config.reparametrize_trajectory_freq, field_stride=stride)
+        return state, StepAux(*(torch.stack(xs, dim=1) for xs in zip(*aux)))
+
+    # ------------------------------------------------- captured chunk program
+
+    # set by `with_aot`: the static schedule replays captured chunk programs
+    aot_prefix: str | None = None
+
+    def with_aot(self, prefix: str):
+        """A copy of this solver whose static schedule (`run` from a chunk's
+        start, `run_grouped`, and the tracked loops, planners and services
+        over them) runs as replays of one captured program per chunk, named
+        `<prefix>-chunk-b<B>[-g<G>]` (`utils.aot.aot_or_compile`: the
+        counterpart of the JAX package's one compiled program per solve). A
+        chunk is the eager schedule's freq steps through the same
+        `step_static`. On the card the noise must come from a CUDA
+        `torch.Generator` (or a `GeneratorNoise` over one); on the CPU the
+        chunk runs eagerly. `aot_events` lists each program the copy resolved:
+        captured (loaded False) or taken from the process's store."""
+        solver = copy.copy(self)
+        solver.aot_prefix = prefix
+        solver.aot_events = []
+        solver._aot_keys = set()
+        return solver
+
+    def _chunk_in_place(self, state, oracle_params: Any, noise, group_size: int):
+        """One chunk of the static schedule with its final state written into
+        `state`'s own tensors: the captured program's body, whose input
+        buffers then carry the state to the next replay."""
+        new, aux = self._chunks(state, oracle_params, self.config.reparametrize_trajectory_freq,
+                                noise, group_size)
+        return tree_copy_(state, new), aux
+
+    def _run_program(self, state, oracle_params: Any, num_steps: int, noise, group_size: int):
+        """`_static_run` as replays of the chunk program; each chunk's aux is
+        copied into [B, num_steps] buffers."""
+        from ..utils.aot import aot_or_compile, shape_digest
+
+        cfg = self.config
+        freq = cfg.reparametrize_trajectory_freq
+        batch = state.start.shape[0]
+        on_card = self.device.type == "cuda"
+        if on_card:
+            noise = _program_generator(noise)
+        else:
+            state = tree_map(torch.clone, state)  # uncaptured, the body writes into its input
+        name = f"chunk-b{batch}" + (f"-g{group_size}" if group_size > 1 else "")
+        program = aot_or_compile(
+            f"{self.aot_prefix}-{name}",
+            lambda s, o, g: self._chunk_in_place(s, o, g, group_size),
+            (state, oracle_params, noise),
+            type(self).__name__, repr(self.oracle_fn), cfg, group_size, cfg.onf.compute_dtype,
+            shape_digest(state), shape_digest(oracle_params),
+        )
+        if program.key not in self._aot_keys:
+            self._aot_keys.add(program.key)
+            self.aot_events.append({"program": name, "loaded": program.loaded,
+                                    "seconds": round(program.seconds, 2)})
+        aux = StepAux(*(torch.empty((batch, num_steps), device=self.device) for _ in range(2)))
+        for c in range(num_steps // freq):
+            state, chunk_aux = program(state, oracle_params, noise)
+            for buf, a in zip(aux, chunk_aux):
+                buf[:, c * freq:(c + 1) * freq] = a
+        # on the card the state is the program's buffers, which its next replay overwrites
+        return (tree_map(torch.clone, state) if on_card else state), aux
 
     # ------------------------------------------------- live problem updates
 
@@ -537,12 +628,7 @@ class ConstrainedSolver(_FieldSolver):
                 f"group_size {group_size}"
             )
         self._check_static_field_stride("shared-field mode")
-        noise = _as_noise(noise)
-        states, aux = scan_chunked(
-            lambda s, r, f: self.step_static(s, oracle_params, noise, r, f, group_size),
-            states, num_steps, freq, field_stride=self._static_field_stride(),
-        )
-        return states, StepAux(*(torch.stack(xs, dim=1) for xs in zip(*aux)))
+        return self._static_run(states, oracle_params, num_steps, noise, group_size)
 
     # ------------------------------------------------- live problem updates
 

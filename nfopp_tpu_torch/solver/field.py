@@ -15,6 +15,7 @@ import torch.nn.functional as F
 
 from ..kernels import field_grad, onf_forward
 from ..ops.sampling import gumbel_noise, gumbel_topk_log_indices, uniform_box_points
+from ..utils.device import device_constant
 from .config import SolverConfig
 
 __all__ = [
@@ -59,14 +60,10 @@ def field_sample_pre(
     positions = prev_trajectory[:, 1:] * (1.0 - t) + prev_trajectory[:, :-1] * t
     normal = noise.normal((batch, 2, n - 1, dim), device)
     if dim == 3:
-        coarse_scale = torch.tensor(
-            [config.course_random_offset] * 2 + [config.angle_offset], dtype=torch.float32,
-            device=device,
-        )
-        fine_scale = torch.tensor(
-            [config.trajectory_random_offset] * 2 + [config.angle_offset], dtype=torch.float32,
-            device=device,
-        )
+        coarse_scale = device_constant(
+            (config.course_random_offset,) * 2 + (config.angle_offset,), device)
+        fine_scale = device_constant(
+            (config.trajectory_random_offset,) * 2 + (config.angle_offset,), device)
     else:
         coarse_scale = config.course_random_offset
         fine_scale = config.trajectory_random_offset
@@ -84,8 +81,9 @@ def buffer_log_weights(
     without it)."""
     log_w = F.logsigmoid(logits) - ages * config.buffer_age_decay
     if floor and config.buffer_weight_floor > 0:
-        floor_w = torch.log(torch.tensor(config.buffer_weight_floor, dtype=torch.float32))
-        log_w = torch.logaddexp(log_w, floor_w.to(log_w.device))
+        # log(floor) as the CPU computes it in float32
+        floor_w = float(torch.log(torch.tensor(config.buffer_weight_floor, dtype=torch.float32)))
+        log_w = torch.logaddexp(log_w, device_constant(floor_w, log_w.device))
     return log_w
 
 

@@ -5,7 +5,7 @@ from typing import Any, Callable
 
 import torch
 
-__all__ = ["tree_map", "tree_leaves", "tree_named_leaves", "tree_rows", "tree_where"]
+__all__ = ["tree_map", "tree_leaves", "tree_named_leaves", "tree_rows", "tree_where", "tree_copy_"]
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
@@ -63,3 +63,16 @@ def tree_where(mask: torch.Tensor, a: Any, b: Any) -> Any:
         return torch.where(mask.reshape((-1,) + (1,) * (x.ndim - 1)), x, y)
 
     return tree_map(pick, a, b)
+
+
+def tree_copy_(dst: Any, src: Any) -> Any:
+    """Copy every leaf of `src` into the same leaf of `dst` in place; returns
+    `dst`. A source leaf that shares memory with a destination leaf other
+    than its own is copied aside first, so no copy reads what another wrote."""
+    pairs = [(d, s) for d, s in zip(tree_leaves(dst), tree_leaves(src)) if d is not s]
+    written = {d.untyped_storage().data_ptr() for d, _ in pairs}
+    pairs = [(d, s.clone() if s.untyped_storage().data_ptr() in written else s)
+             for d, s in pairs]
+    for d, s in pairs:
+        d.copy_(s)
+    return dst

@@ -145,9 +145,11 @@ def main() -> int:
 
     import torch
 
+    from nfopp_tpu_torch.utils import enable_compile_cache
     from nfopp_tpu_torch.utils.device import check_device
 
     device = check_device(args.device, "anytime_server_torch")
+    enable_compile_cache(device)  # the kernel library, before any timing
     if device.type == "cuda":
         from nfopp_tpu_torch.kernels import build
 

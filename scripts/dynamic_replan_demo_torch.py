@@ -322,9 +322,11 @@ def main() -> int:
 
     import torch
 
+    from nfopp_tpu_torch.utils import enable_compile_cache
     from nfopp_tpu_torch.utils.device import check_device
 
     device = check_device(args.device, "dynamic_replan_demo_torch")
+    enable_compile_cache(device)  # the kernel library, before any timing
     if args.session:
         result = session_main(args, device)
     else:

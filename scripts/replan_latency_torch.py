@@ -27,9 +27,12 @@ for a session (JAX's --device-true): the session is a Python loop, timed with
 CUDA events after a synchronize, and its mean cycle is reported. --fleet-sweep
 runs it over fleet sizes ('R/S': R robots in S sub-fleets).
 
-The JAX script's --aot and its TPU compile cache have no counterpart here:
-the port compiles its kernels once per checkout and nothing per shape.
---device (default cuda; refused without a card) replaces --cpu.
+--aot runs every mode's bursts as replays of captured chunk programs (one
+CUDA graph per 10-step chunk, `utils/aot.py`: the solver's `with_aot`), where
+the JAX script's --aot loads its session programs from the AOT store; the
+result lists the programs captured. The kernel library is built and loaded
+before any timing (`utils/compile_cache.py`). --device (default cuda;
+refused without a card) replaces --cpu.
 """
 from __future__ import annotations
 
@@ -45,9 +48,10 @@ import numpy as np
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 
-def car_setup(device, field_freq: int = 1):
+def car_setup(device, field_freq: int = 1, aot: bool = False):
     """(solver, oracle, env) of the car scene with run_planner_config (the
-    field trained every `field_freq`-th step), on `device`."""
+    field trained every `field_freq`-th step), on `device`; with `aot` the
+    solver runs its static schedule as captured chunk programs."""
     from nfopp_tpu_torch.solver import ConstrainedSolver, run_planner_config
     from nfopp_tpu_torch.tools.scene import car_world
     from nfopp_tpu_torch.worlds import car_environment, rectangle_collision
@@ -59,6 +63,8 @@ def car_setup(device, field_freq: int = 1):
                              f"{config.reparametrize_trajectory_freq} (static schedule)")
         config = config._replace(optimize_collision_model_freq=field_freq)
     solver = ConstrainedSolver(config, rectangle_collision, device=device)
+    if aot:
+        solver = solver.with_aot("replan")
     oracle = car_world(1, device)[0]
     return solver, oracle, car_environment()
 
@@ -256,16 +262,21 @@ def main() -> int:
     parser.add_argument("--fleet-sweep", default=None, metavar="SIZES",
                         help="session fleet-scaling curve: comma list of fleet sizes, "
                              "'R/S' for R robots in S sub-fleets (e.g. '1,8,128,256/2')")
+    parser.add_argument("--aot", action="store_true",
+                        help="run the bursts as replays of captured chunk programs "
+                        "(CUDA graphs; the result lists them)")
     parser.add_argument("--json-out", default=None,
                         help="also write the result JSON to this path")
     args = parser.parse_args()
 
     import torch
 
+    from nfopp_tpu_torch.utils import enable_compile_cache
     from nfopp_tpu_torch.utils.device import check_device
 
     device = check_device(args.device, "replan_latency_torch")
-    solver, oracle, env = car_setup(device, args.field_freq)
+    enable_compile_cache(device)
+    solver, oracle, env = car_setup(device, args.field_freq, args.aot)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
 
     if args.fleet_sweep:
@@ -287,6 +298,8 @@ def main() -> int:
         result = {**host_fleet(args, solver, oracle, env)[0], "device": name}
     else:
         result = {**host_service(args, solver, oracle, env), "device": name}
+    if args.aot:
+        result["aot_events"] = solver.aot_events
     out = json.dumps(result)
     print(out)
     if args.json_out:

@@ -15,7 +15,9 @@ CPU), solves all seeds at once in one batch on --device (default cuda; the
 script refuses to start without a card unless --device cpu), evaluates the
 PathStatistics suite per problem, prints a summary table, and saves results
 JSON in the reference's schema. The flags are run_benchmark.py's, except
---aot and --cpu, which --device replaces.
+--cpu, which --device replaces. --aot runs the solves as replays of captured
+chunk programs (one CUDA graph per 10-step chunk, `utils/aot.py`) where
+JAX's loads compiled executables from its AOT store.
 """
 from __future__ import annotations
 
@@ -195,6 +197,9 @@ def main():
                         "footprint as exact edge-distance inflation) instead "
                         "of the rasterized grid; clearance metrics become "
                         "exact segment distances")
+    parser.add_argument("--aot", action="store_true",
+                        help="run the solves as replays of captured chunk programs "
+                        "(CUDA graphs, utils/aot.py); their events go into the log")
     parser.add_argument("--out", default="nfopp_results.json")
     parser.add_argument("--device", default="cuda",
                         help="device of the solve (cuda, or cpu for the plain "
@@ -206,10 +211,12 @@ def main():
     import torch
 
     from nfopp_tpu_torch.bench.runner import run_grid_suite
+    from nfopp_tpu_torch.utils import enable_compile_cache
     from nfopp_tpu_torch.utils.config import Config
     from nfopp_tpu_torch.utils.device import check_device
 
     device = check_device(args.device, "run_benchmark_torch.py")
+    enable_compile_cache(device)
     scenarios = build_scenarios(args)
     parameters = bench_parameters()
     if args.suite == "movingai":
@@ -241,10 +248,16 @@ def main():
         resume=args.resume,
         shortcut_trials=args.shortcut,
         device=device,
+        aot=args.aot,
         **exact_kw,
     )
 
     feasible = result.feasible
+    if args.aot:
+        events = result.log.settings["suite"].get("aot_events", [])
+        loaded = sum(1 for e in events if e["loaded"])
+        print(f"programs: {loaded}/{len(events)} taken from the store (capture bypassed): "
+              f"{json.dumps(events)}")
     print(f"\nwall time (all problems, one batch): {result.wall_time:.2f}s")
     print(f"feasible: {int(feasible.sum())}/{len(feasible)}")
     bad = (result.start_invalid | result.goal_invalid)

@@ -88,9 +88,11 @@ def main():
                         help="device of the solves (cuda, or cpu for the plain PyTorch path)")
     args = parser.parse_args()
 
+    from nfopp_tpu_torch.utils import enable_compile_cache
     from nfopp_tpu_torch.utils.device import check_device
 
     device = check_device(args.device, "run_sweep_torch.py")
+    enable_compile_cache(device)  # the kernel library, before any timing
     rows = sweep(sweep_scenarios(args.suite, args.seeds),
                  [float(x) for x in args.sigmas.split(",")],
                  [float(x) for x in args.collision_weights.split(",")],

@@ -134,9 +134,11 @@ def main() -> int:
                         "ratios mean nothing; the record is not for keeping)")
     args = parser.parse_args()
 
+    from nfopp_tpu_torch.utils import enable_compile_cache
     from nfopp_tpu_torch.utils.device import check_device
 
     device = check_device(args.device, "shortcut_gains_torch.py")
+    enable_compile_cache(device)  # the kernel library, before any timing
     out = {
         "postprocess": f"ops/shortcut.py random-pair shortcutting, {TRIALS} trials per "
                        "path, dense 5-sample check",

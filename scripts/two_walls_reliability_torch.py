@@ -119,9 +119,11 @@ def main() -> int:
                         help="JSON line of an earlier run to test each rate against")
     args = parser.parse_args()
 
+    from nfopp_tpu_torch.utils import enable_compile_cache
     from nfopp_tpu_torch.utils.device import check_device
 
     device = check_device(args.device, "two_walls_reliability_torch.py")
+    enable_compile_cache(device)  # the kernel library, before any timing
     result = reliability(args.seeds, args.restarts, args.iterations, device,
                          log=lambda msg: print(msg, file=sys.stderr, flush=True))
     if args.record:

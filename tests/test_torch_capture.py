@@ -1,0 +1,173 @@
+"""The captured chunk program's route through the solvers (solver.with_aot)
+against the eager runs, bit for bit, on the CPU, where the program is the
+chunk function itself: the same `step_static` steps, the body's copy-back
+into its input buffers and the aux written chunk by chunk into [B, steps]
+buffers must change no bit. Covers ConstrainedSolver.run (f32 and bf16),
+run_grouped, HolonomicSolver.run, a field trained every 10th step (whose
+prev_trajectory is the chunk's input trajectory), the tracked loops, the
+dynamic schedule (not captured), BatchPlanner(aot_prefix=...) and
+run_grid_suite(aot=True). The capture on the card is held by chip_smoke.py
+phase 14. B=4, 20 steps, the car scene, hidden 16.
+"""
+import numpy as np
+import pytest
+import torch
+
+from nfopp_tpu_torch.experimental import ExperimentalConstrainedSolver
+from nfopp_tpu_torch.models import ONFConfig
+from nfopp_tpu_torch.ops.sampling import GeneratorNoise
+from nfopp_tpu_torch.parallel import BatchPlanner
+from nfopp_tpu_torch.solver import (
+    ConstrainedSolver,
+    HolonomicSolver,
+    SolverConfig,
+    run_grouped_with_tracking,
+    run_with_tracking,
+)
+from nfopp_tpu_torch.tools.scene import car_world
+from nfopp_tpu_torch.utils.tree import tree_leaves
+from nfopp_tpu_torch.worlds import CircleOracle, circle_collision, rectangle_collision
+
+B, STEPS = 4, 20
+CFG = SolverConfig(trajectory_length=12, collision_point_count=12, random_field_points=4,
+                   onf=ONFConfig(angle_encoding=True, hidden=16), angle_offset=0.3,
+                   init_collision_iteration=5, init_collision_points=32)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Long loops of small tensor ops: one intra-op thread, so that test
+    workers sharing the cores do not spin against each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def same(a, b) -> bool:
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def gen(seed):
+    return torch.Generator().manual_seed(seed)
+
+
+def car(cfg=CFG, group_size=1):
+    oracle, start, goal, bounds = car_world(B, "cpu")
+    solver = ConstrainedSolver(cfg, rectangle_collision, device="cpu")
+    state = solver.init_state(gen(0), start, goal, bounds, oracle, group_size=group_size)
+    return solver, state, oracle
+
+
+def leaves_copy(tree):
+    return [x.clone() for x in tree_leaves(tree)]
+
+
+@pytest.mark.parametrize("cfg", [
+    CFG,
+    CFG._replace(onf=CFG.onf._replace(compute_dtype="bfloat16")),
+    CFG._replace(optimize_collision_model_freq=10),
+    CFG._replace(optimize_collision_model_freq=5),
+], ids=["f32", "bf16", "field-every-10th", "field-every-5th"])
+def test_run_through_the_chunk_program_equals_run(cfg):
+    solver, state, oracle = car(cfg)
+    before = leaves_copy(state)
+    want = solver.run(state, oracle, STEPS, gen(1))
+    captured = solver.with_aot("test")
+    g = gen(1)
+    got = captured.run(state, oracle, STEPS, g)
+    assert same(want, got)
+    assert all(torch.equal(x, y) for x, y in zip(before, tree_leaves(state)))  # input untouched
+    assert captured.aot_events == [{"program": f"chunk-b{B}", "loaded": False, "seconds": 0.0}]
+    assert solver.aot_prefix is None and not hasattr(solver, "aot_events")
+
+
+def test_generator_ends_where_the_eager_run_leaves_it():
+    solver, state, oracle = car()
+    g_eager, g_captured = gen(3), gen(3)
+    solver.run(state, oracle, STEPS, g_eager)
+    solver.with_aot("test").run(state, oracle, STEPS, GeneratorNoise(g_captured))
+    assert torch.equal(g_eager.get_state(), g_captured.get_state())
+
+
+def test_run_grouped_through_the_chunk_program_equals_run_grouped():
+    solver, state, oracle = car(group_size=2)
+    want = solver.run_grouped(state, oracle, STEPS, 2, gen(1))
+    captured = solver.with_aot("test")
+    assert same(want, captured.run_grouped(state, oracle, STEPS, 2, gen(1)))
+    assert captured.aot_events[0]["program"] == f"chunk-b{B}-g2"
+
+
+def test_holonomic_run_through_the_chunk_program_equals_run():
+    cfg = CFG._replace(onf=CFG.onf._replace(angle_encoding=False))
+    oracle = CircleOracle(torch.tensor([[[1.5, 1.5]]]), torch.tensor([[True]]),
+                          torch.tensor([0.3]), torch.tensor([[0.0, 3.0, 0.0, 3.0]]))
+    solver = HolonomicSolver(cfg, circle_collision, device="cpu")
+    state = solver.init_state(gen(0), np.tile([[0.2, 0.2]], (B, 1)), np.tile([[2.8, 2.8]], (B, 1)),
+                              np.tile([[0.0, 3.0, 0.0, 3.0]], (B, 1)), oracle)
+    want = solver.run(state, oracle, STEPS, gen(1))
+    assert same(want, solver.with_aot("test").run(state, oracle, STEPS, gen(1)))
+
+
+def test_tracked_loops_through_the_chunk_program_equal_the_eager_loops():
+    solver, state, oracle = car()
+    kw = dict(max_iterations=40, min_iterations=10, check_freq=10)
+    want = run_with_tracking(solver, state, oracle, gen(1), **kw)
+    assert same(want, run_with_tracking(solver.with_aot("test"), state, oracle, gen(1), **kw))
+    solver, state, oracle = car(group_size=2)
+    want = run_grouped_with_tracking(solver, state, oracle, 2, gen(1), **kw)
+    got = run_grouped_with_tracking(solver.with_aot("test"), state, oracle, 2, gen(1), **kw)
+    assert same(want, got)
+
+
+def test_the_dynamic_schedule_stays_eager():
+    """A state off a chunk's start (or a step count off the chunk) runs the
+    per-step schedule, with or without with_aot, and resolves no program."""
+    solver, state, oracle = car()
+    state, _ = solver.run(state, oracle, 5, gen(2))
+    captured = solver.with_aot("test")
+    assert same(solver.run(state, oracle, 10, gen(1)), captured.run(state, oracle, 10, gen(1)))
+    assert captured.aot_events == []
+
+
+def test_capture_of_the_experimental_orders_is_refused():
+    oracle, *_ = car_world(B, "cpu")
+    for flag in ("jacobi_step", "merged_step", "use_fused_field_grad"):
+        solver = ExperimentalConstrainedSolver(CFG, rectangle_collision, device="cpu",
+                                               **{flag: True})
+        with pytest.raises(NotImplementedError, match="default step order"):
+            solver.with_aot("test")
+    plain = ExperimentalConstrainedSolver(CFG, rectangle_collision, device="cpu")
+    assert plain.with_aot("test").aot_prefix == "test"
+
+
+def test_batch_planner_aot_prefix_matches_the_plain_planner():
+    solver, state, oracle = car()
+    plain, captured = BatchPlanner(solver), BatchPlanner(solver, aot_prefix="suite")
+    assert plain.aot_events == [] and captured.solver is not solver
+    kw = dict(max_iterations=40, min_iterations=10, check_freq=10)
+    assert same(plain.solve(state, oracle, gen(1), **kw),
+                captured.solve(state, oracle, gen(1), **kw))
+    assert same(plain.run(state, oracle, STEPS, gen(1)), captured.run(state, oracle, STEPS, gen(1)))
+    assert captured.aot_events == [{"program": f"chunk-b{B}", "loaded": False, "seconds": 0.0}]
+    _, grouped, _ = car(group_size=2)
+    assert same(plain.solve_grouped_tracked(grouped, oracle, 2, gen(1), **kw),
+                captured.solve_grouped_tracked(grouped, oracle, 2, gen(1), **kw))
+    assert [e["program"] for e in captured.aot_events] == [f"chunk-b{B}", f"chunk-b{B}-g2"]
+
+
+def test_run_grid_suite_aot_matches_the_plain_suite_and_logs_its_programs():
+    from test_torch_suite import FAST, small_parameters, wall_scenario
+
+    from nfopp_tpu_torch.bench.runner import run_grid_suite
+
+    worlds = [wall_scenario(), wall_scenario()]
+    fast = dict(FAST, check_freq=20)  # chunks of whole 10-step programs
+    plain = run_grid_suite(worlds, small_parameters(), device="cpu", **fast)
+    captured = run_grid_suite(worlds, small_parameters(), device="cpu", aot=True, **fast)
+    for name in ("paths", "feasible", "lengths", "iterations"):
+        np.testing.assert_array_equal(getattr(plain, name), getattr(captured, name))
+    assert "aot_events" not in plain.log.settings["suite"]
+    events = captured.log.settings["suite"]["aot_events"]
+    assert events == [{"program": "chunk-b2", "loaded": False, "seconds": 0.0}]
