@@ -125,6 +125,23 @@ Phases, each of which raises on failure (the script then exits non-zero):
      replays per step; (e) scripts/profile_step2_torch.py's parts of the
      step at B=256, eager and captured. The launches of (a)-(c) join the
      kernels' counts; (d) and (e) time the step and are not counted.
+ 15. the problem mesh (parallel/mesh.py over torch.distributed, one process
+     per rank, each a run of this script's --mesh-worker mode, which drives
+     scripts/run_multihost_torch.py's `run` and then holds kernels 1-3b
+     against their plain versions on its rank's own next-step inputs): (a)
+     phase 4's cell (car scene, f32, B=256 x 1000 steps) through
+     BatchPlanner(solver, problem_mesh()) in a world of 1 over nccl, its
+     final state bit-identical to phase 4's, its time beside phase 4's; (b)
+     two ranks sharing the card over gloo (--batch-per-host 128, --device
+     cuda:0) against (a) as the 1-process run of the same 256 problems:
+     every problem's feasibility equal, the global feasible fraction at
+     least 0.98, the mean loss within the CPU test's rel 1e-4, then 100
+     steps with one field spanning both ranks (--group-size 256), its
+     replicas bit-identical, gathered; s per 1000 steps per rank, collectives
+     per step and their host ms; (c) nfopp_tpu_torch.graft_entry.
+     dryrun_multichip(2) with both ranks on cuda:0, every stage passing; (d)
+     (b) over nccl on two cards where there are two, else a line saying why
+     not. The launches of (a) and (b) join the kernels' counts.
 After each solve of phases 7-10 (the tracked and grouped paths, the holonomic
 path, both planners and the suite), every kernel of that path is held against
 its plain version on the inputs the path's next step gives it, at the path's
@@ -2825,9 +2842,217 @@ def profile_orders(seed: int) -> dict:
     return out
 
 
+# phase 15, the problem mesh: each rank a process of this script's --mesh-worker mode
+MESH_STEPS, MESH_GROUPED_STEPS = STEPS, 100
+MESH_TIMEOUT = 300  # seconds for a rank's process, and 120 for each collective
+MESH_LOSS_RTOL = 1e-4  # tests/test_torch_multihost.py's 2 ranks against 1 process
+
+
+def state_digest(state) -> dict:
+    """sha256 of every leaf's bytes, by leaf name: two states are bit-identical
+    iff their digests are."""
+    import hashlib
+
+    from nfopp_tpu_torch.utils.tree import tree_named_leaves
+
+    return {name: hashlib.sha256(leaf.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+            for name, leaf in tree_named_leaves(state)}
+
+
+def mesh_worker(out: str, seed: int, script_args: list) -> int:
+    """One rank of phase 15: scripts/run_multihost_torch.py's `run` with
+    `script_args`, its kernels' launches counted from 0 around the solve,
+    then kernels 1-3b held on this rank's own next-step inputs, its state's
+    digest and the digests of its blocks of BATCH // 2 global rows; writes
+    {result, launches, kernels_held, digest, blocks} to `out`."""
+    import torch.distributed as dist
+
+    from nfopp_tpu_torch import kernels
+    from nfopp_tpu_torch.kernels import build
+
+    build.load_library()
+    script = load_script("run_multihost_torch")
+    args = script.parse_args(script_args)
+    kernels.reset_launches()
+    result, context = script.run(args)
+    launches = dict(kernels.LAUNCHES)
+    mesh = context["mesh"]
+    held = hold_path_kernels(f"phase 15 rank {mesh.rank} of {mesh.size}",
+                             context["planner"].solver, context["states"], context["oracle"],
+                             seed + 1)
+    from nfopp_tpu_torch.utils.tree import tree_rows
+
+    states, block = context["states"], BATCH // 2
+    first = mesh.rank * states.start.shape[0]
+    blocks = {f"{lo}:{lo + block}": state_digest(tree_rows(states, lo - first, lo - first + block))
+              for lo in range(first, first + states.start.shape[0], block)}
+    pathlib.Path(out).write_text(json.dumps({
+        "result": result, "launches": launches, "kernels_held": held,
+        "digest": state_digest(states), "blocks": blocks}))
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return 0
+
+
+def mesh_ranks(tmp: pathlib.Path, name: str, seed: int, ranks: list) -> list:
+    """Run one process per entry of `ranks` (each the script's arguments of
+    one rank), all at once; returns each rank's worker JSON. Raises with the
+    log's tail if a rank fails or outlives MESH_TIMEOUT."""
+    import subprocess
+
+    procs, outs, logs = [], [], []
+    for i, script_args in enumerate(ranks):
+        outs.append(tmp / f"{name}-{i}.json")
+        logs.append(tmp / f"{name}-{i}.log")
+        procs.append(subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--seed", str(seed), "--mesh-worker",
+             str(outs[-1]), "--", *script_args, "--seed", str(seed), "--timeout", "120"],
+            cwd=str(ROOT), stdout=logs[-1].open("w"), stderr=subprocess.STDOUT))
+    try:
+        for p in procs:
+            p.wait(timeout=MESH_TIMEOUT)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for i, p in enumerate(procs):
+        text = logs[i].read_text()
+        for line in text.splitlines():
+            if "backend" in line or "kernels held" in line:
+                log(f"  {name} rank {i}: {line.strip()}")
+        if p.returncode != 0:
+            raise AssertionError(f"phase 15 {name}: rank {i} failed (rc {p.returncode}):\n"
+                                 + "\n".join(text.splitlines()[-30:]))
+    return [json.loads(o.read_text()) for o in outs]
+
+
+def mesh_pair(tmp, name: str, seed: int, backend: str, extra: tuple, per_rank: int,
+              steps: int, devices: tuple) -> list:
+    """Two ranks of run_multihost_torch over `backend`, one per device."""
+    return mesh_ranks(tmp, name, seed, [
+        ["--num-processes", "2", "--process-id", str(i), "--init-file",
+         str(tmp / f"rendezvous-{name}"), "--backend", backend, "--device", devices[i],
+         "--batch-per-host", str(per_rank), "--steps", str(steps), *extra]
+        for i in range(2)])
+
+
+def mesh_phase(seed: int, main_digest: dict, eager_f32: float, card: str) -> tuple[dict, dict]:
+    """Phase 15 (see the module): returns its metrics and the launches of
+    the ranks' solves (15a and 15b), summed."""
+    import tempfile
+
+    import torch
+
+    launches = {name: 0 for name in MAIN_PATH}
+    metrics = {}
+    with tempfile.TemporaryDirectory(prefix="mesh-", dir=ROOT) as tmp:
+        tmp = pathlib.Path(tmp)
+        # (a) world of 1 over nccl, phase 4's cell
+        t0 = time.perf_counter()
+        (one,) = mesh_ranks(tmp, "15a", seed, [[
+            "--num-processes", "1", "--process-id", "0", "--init-file", str(tmp / "rdv-15a"),
+            "--backend", "nccl", "--batch-per-host", str(BATCH), "--steps", str(MESH_STEPS)]])
+        if one["digest"] != main_digest:
+            differ = sorted(k for k in main_digest if one["digest"].get(k) != main_digest[k])
+            raise AssertionError(f"phase 15a: the mesh run's final state differs from phase 4's "
+                                 f"in {differ}")
+        check_launches(one["launches"], MAIN_PATH, MESH_STEPS, "phase 15a")
+        r = one["result"]
+        metrics["15a"] = {
+            "world": 1, "backend": r["backend"], "batch": r["total_batch"],
+            "s_per_1000_steps": r["s_per_1000_steps"],
+            "phase4_eager_s_per_1000_steps": eager_f32 / STEPS * 1000,
+            "feasible_fraction": r["feasible_fraction"], "state": "bit-identical to phase 4",
+            "collectives": r["collectives"], "collective_ms": r["collective_ms"],
+            "kernels_held": one["kernels_held"]["max_abs_err"],
+            "process_s": time.perf_counter() - t0}
+        for name in MAIN_PATH:
+            launches[name] += one["launches"][name]
+
+        # (b) two ranks on the one card over gloo, against (a)
+        t0 = time.perf_counter()
+        pair = mesh_pair(tmp, "15b", seed, "gloo", (), BATCH // 2, MESH_STEPS,
+                         ("cuda:0", "cuda:0"))
+        grouped = mesh_pair(tmp, "15b-grouped", seed, "gloo", ("--group-size", str(BATCH)),
+                            BATCH // 2, MESH_GROUPED_STEPS, ("cuda:0", "cuda:0"))
+        metrics["15b"] = mesh_pair_metrics("15b", pair, grouped, one)
+        metrics["15b"]["process_s"] = time.perf_counter() - t0
+        for rank in pair + grouped:
+            check_launches(rank["launches"], MAIN_PATH, rank["result"]["steps"], "phase 15b")
+            for name in MAIN_PATH:
+                launches[name] += rank["launches"][name]
+
+        # (c) the dry run of the multi-chip entry, both ranks on cuda:0
+        from nfopp_tpu_torch import graft_entry
+
+        t0 = time.perf_counter()
+        verdict = graft_entry.dryrun_multichip(2)
+        metrics["15c"] = {"stages": verdict, "seconds": time.perf_counter() - t0}
+
+        # (d) nccl over two cards, where there are two
+        if torch.cuda.device_count() >= 2:
+            t0 = time.perf_counter()
+            nccl = mesh_pair(tmp, "15d", seed, "nccl", (), BATCH // 2, MESH_STEPS,
+                             ("cuda:0", "cuda:1"))
+            nccl_grouped = mesh_pair(tmp, "15d-grouped", seed, "nccl",
+                                     ("--group-size", str(BATCH)), BATCH // 2,
+                                     MESH_GROUPED_STEPS, ("cuda:0", "cuda:1"))
+            metrics["15d"] = mesh_pair_metrics("15d", nccl, nccl_grouped, one)
+            metrics["15d"]["process_s"] = time.perf_counter() - t0
+        else:
+            print(json.dumps({"nccl_world2": f"not run: {torch.cuda.device_count()} card"}),
+                  flush=True)
+            metrics["15d"] = f"not run: {torch.cuda.device_count()} card"
+    return metrics, launches
+
+
+def mesh_pair_metrics(name: str, pair: list, grouped: list, one: dict) -> dict:
+    """Hold a 2-rank run (and its grouped run) against the 1-process run
+    `one` of the same 256 problems, and read its numbers."""
+    r0, r1 = (rank["result"] for rank in pair)
+    single = one["result"]
+    if not r0["feasible"] == r1["feasible"] == single["feasible"]:
+        raise AssertionError(f"phase {name}: per-problem feasibility differs from 1 process")
+    if r0["feasible_fraction"] < 0.98:
+        raise AssertionError(f"phase {name}: feasible fraction {r0['feasible_fraction']} "
+                             "below the 0.98 floor")
+    if abs(r0["mean_loss"] - single["mean_loss"]) > MESH_LOSS_RTOL * abs(single["mean_loss"]):
+        raise AssertionError(f"phase {name}: mean loss {r0['mean_loss']} against "
+                             f"{single['mean_loss']} of 1 process")
+    g = [rank["result"] for rank in grouped]
+    if not all(r["replicas_equal"] for r in g):
+        raise AssertionError(f"phase {name}: a field spanning both ranks has unequal replicas")
+    return {
+        "ranks": 2, "backend": r0["backend"], "devices": [r0["device"], r1["device"]],
+        "batch_per_rank": r0["total_batch"] // 2,
+        "s_per_1000_steps_per_rank": [r0["s_per_1000_steps"], r1["s_per_1000_steps"]],
+        "one_process_s_per_1000_steps": single["s_per_1000_steps"],
+        "feasible_fraction": r0["feasible_fraction"], "decisions_equal": True,
+        "mean_loss": r0["mean_loss"], "one_process_mean_loss": single["mean_loss"],
+        # printed, not held: the 2-rank rows' final states against the 1-process run's
+        "state_bit_identical_to_one_process": all(
+            digest == one["blocks"].get(rows) for rank in pair
+            for rows, digest in rank["blocks"].items()),
+        "collectives_per_step": r0["collectives_per_step"],
+        "collective_ms": [r0["collective_ms"], r1["collective_ms"]],
+        "grouped": {"steps": g[0]["steps"], "group_size": g[0]["group_size"],
+                    "replicas_equal": True,
+                    "s_per_1000_steps_per_rank": [r["s_per_1000_steps"] for r in g],
+                    "collectives_per_step": g[0]["collectives_per_step"],
+                    "collective_ms": [r["collective_ms"] for r in g],
+                    "mean_loss": g[0]["mean_loss"], "feasible_fraction": g[0]["feasible_fraction"]},
+        "kernels_held": {f"rank{i}": rank["kernels_held"]["max_abs_err"]
+                         for i, rank in enumerate(pair + grouped)},
+    }
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of weights, data and noise")
+    parser.add_argument("--mesh-worker", default=None, metavar="OUT",
+                        help="run one rank of phase 15 (the script's arguments follow --)")
+    parser.add_argument("script_args", nargs="*", help=argparse.SUPPRESS)
     args = parser.parse_args()
 
     import torch
@@ -2836,6 +3061,8 @@ def main() -> int:
         log("chip_smoke: no CUDA device; this script measures the card and has no CPU mode")
         return 2
     sys.path.insert(0, str(ROOT))
+    if args.mesh_worker is not None:
+        return mesh_worker(args.mesh_worker, args.seed, args.script_args)
     from nfopp_tpu_torch.kernels import build
     from nfopp_tpu_torch.tools.scene import card_line
 
@@ -2875,6 +3102,7 @@ def main() -> int:
     log(f"agreement CUDA vs CPU, one step of 4 problems: {agreement}")
     metrics, launches, main_state = solve(device, args.seed, BATCH, STEPS, MAIN_PATH)
     eager_seconds = {"f32": metrics["seconds"]}
+    main_digest = state_digest(main_state)  # phase 15a holds its mesh run against it
     metrics.update(build_s=build_s, agreement_max_abs=agreement, card=card,
                    drift_trajectory={d["step"]: d["trajectory"] for d in drift})
     print(json.dumps({"main_path": metrics}), flush=True)
@@ -3017,6 +3245,14 @@ def main() -> int:
     print(json.dumps({"step_parts": {"batch": BATCH, "calls": PARTS_STEPS, "parts": parts,
                                      "card": card}}), flush=True)
     log(f"phase 14: {time.perf_counter() - t0:.1f}s")
+
+    # 15. the problem mesh: its ranks' launches join the kernels' counts
+    t0 = time.perf_counter()
+    mesh, mesh_launches = mesh_phase(args.seed, main_digest, eager_seconds["f32"], card)
+    print(json.dumps({"mesh": {**mesh, "card": card}}), flush=True)
+    for name in MAIN_PATH:
+        launches[name] += mesh_launches[name]
+    log(f"phase 15: {time.perf_counter() - t0:.1f}s")
 
     entries = []
     for name, res in kernel_results.items():

@@ -12,7 +12,9 @@ shared-field group mode (`run_grouped`) and the tracked (anytime) loops of
 run_batch` is the batch-explicit solve, in f32 or bf16 with the TPU
 multi-problem kernels' casts. `service` holds the replanning services
 (`ReplanningService`, `FleetReplanningService`, `WorldState`) and the
-scripted replanning sessions over them.
+scripted replanning sessions over them. `parallel` shards a batch over a
+problem mesh of processes, one per card (`torch.distributed`), and
+`graft_entry` holds the entry points `entry` and `dryrun_multichip`.
 """
 from . import service
 from .experimental import ExperimentalConstrainedSolver

@@ -10,12 +10,17 @@ early stop, shortcut, re-solved as restarts where it failed, and evaluated
 with the PathStatistics suite (native C++ evaluator) into a results JSON of
 the reference's schema.
 
-JAX's version shards the batch over a mesh and draws from PRNG keys; the
-port solves on one device (`device=`, "cuda" unless the caller asks for the
-CPU) and seeds a `torch.Generator` from the same integers (`seed`, `seed ^
-0x5C0C` for the shortcut, `seed ^ (0x5EED0F + round * 0x9E3779)` for each
-restart round), so the worlds, endpoint checks and initial trajectories
-equal JAX's and the solves' random streams differ.
+Both versions shard the batch over a mesh: JAX's over devices, the port's
+over processes, one per card (`mesh=`, `parallel/mesh.py`; default: the
+default process group, or this process alone on `device=`, "cuda" unless the
+caller asks for the CPU). Every rank builds the same worlds from the same
+seeds and keeps its rows for the wavefront init, the solves and the
+shortcut pass; their results are gathered, so every host decision (restart
+lanes, rounds) and the evaluation see the whole suite on every rank. Where
+JAX draws from PRNG keys the port seeds a `torch.Generator` from the same
+integers (`seed`, `seed ^ 0x5C0C` for the shortcut, `seed ^ (0x5EED0F +
+round * 0x9E3779)` for each restart round), so the worlds, endpoint checks
+and initial trajectories equal JAX's and the solves' random streams differ.
 """
 from __future__ import annotations
 
@@ -28,8 +33,8 @@ import numpy as np
 import torch
 
 from ..astar.initializer import batched_wavefront_trajectories
-from ..ops.shortcut import shortcut_batch
-from ..parallel import BatchPlanner
+from ..ops.shortcut import shortcut_batch, shortcut_pairs
+from ..parallel import BatchPlanner, batch_sharding, gather_batch, problem_mesh, shard_batch
 from ..solver import ConstrainedSolver, config_from_parameters
 from ..solver.api import DEFAULT_PARAMETERS
 from ..solver.tracking import evaluate_path
@@ -62,18 +67,27 @@ class SuiteResult:
 
 
 def _shortcut_pass(solver, oracles, paths, lengths, feasible, generator, trials,
-                   samples_per_segment: int = 5):
-    """Random-pair shortcut pass over a whole path batch.
+                   samples_per_segment: int = 5, mesh=None):
+    """Random-pair shortcut pass over a whole path batch: each rank shortens
+    its rows (the pairs cut from the block drawn for the whole batch), and
+    the results are gathered.
 
     Returns updated (paths, lengths, feasible, repaired_mask[B]). A candidate
     is taken whenever its dense re-check passes: accepted shortcuts can't
     break feasibility at the same sampling density, and a chord spanning an
     infeasible path's colliding span can even REPAIR it; the per-lane
     repaired mask lets callers attribute rescues exactly."""
-    short = shortcut_batch(solver.oracle_fn, oracles,
-                           torch.as_tensor(paths, device=solver.device), generator, trials,
+    mesh = problem_mesh(device=solver.device) if mesh is None else mesh
+    batch, m = paths.shape[:2]
+    rows = batch_sharding(mesh, batch)
+    pairs = shortcut_pairs(generator, trials, batch, m, solver.device)[:, rows]
+    local_oracles = shard_batch(oracles, mesh, batch)
+    short = shortcut_batch(solver.oracle_fn, local_oracles,
+                           torch.as_tensor(paths[rows], device=solver.device), pairs, trials,
                            samples_per_segment)
-    collides_s, lengths_s = evaluate_path(solver.oracle_fn, oracles, short, samples_per_segment)
+    collides_s, lengths_s = evaluate_path(solver.oracle_fn, local_oracles, short,
+                                          samples_per_segment)
+    short, collides_s, lengths_s = gather_batch((short, collides_s, lengths_s), mesh)
     take = ~collides_s.cpu().numpy()
     repaired_mask = take & ~feasible
     paths = paths.copy()
@@ -111,9 +125,12 @@ def run_grid_suite(
     obstacle_segments: list | None = None,
     device="cuda",
     aot: bool = False,
+    mesh=None,
 ) -> SuiteResult:
-    """Solve every scenario in one batch on `device`; scenarios must share
-    grid shape.
+    """Solve every scenario in one batch, sharded over `mesh` (default: the
+    default process group, or this process alone on `device`); scenarios
+    must share grid shape, and every rank passes the same ones. The batch
+    must divide over the mesh; restart batches are padded to it.
 
     astar_init=True seeds each problem with a batched wavefront geodesic path
     (the benchmark-mode AstarTrajectoryInitializer role, run_bench_mr.py:23-27),
@@ -166,11 +183,12 @@ def run_grid_suite(
         )
     config = config_from_parameters(parameters)
     oracle_fn = oracle_fn if oracle_fn is not None else grid_collision
-    solver = ConstrainedSolver(config, oracle_fn, device=device)
+    solver = ConstrainedSolver(config, oracle_fn,
+                               device=device if mesh is None else mesh.device)
     # aot=True runs the solves as replays of captured chunk programs
     # (utils/aot.py; keys carry source, config and shape identity)
-    planner = BatchPlanner(solver, aot_prefix="suite" if aot else None)
-    device = solver.device
+    planner = BatchPlanner(solver, mesh, aot_prefix="suite" if aot else None)
+    device, mesh = solver.device, planner.mesh
 
     grid_oracles = _stack_oracles([s.oracle(footprint_radius, device) for s in scenarios])
     oracles = solve_oracles if solve_oracles is not None else grid_oracles
@@ -190,11 +208,13 @@ def run_grid_suite(
     t0 = time.time()
     trajectories = None
     if astar_init:
-        trajectories = batched_wavefront_trajectories(
-            grid_oracles.occupancy,  # footprint-dilated occupancy [B, H, W]
-            starts, goals, batched([s.origin for s in scenarios]),
-            batched([s.resolution for s in scenarios]), config.trajectory_length,
-        )
+        # each rank plans its rows; the planner takes the whole batch
+        rows = batch_sharding(mesh, len(scenarios))
+        trajectories = gather_batch(batched_wavefront_trajectories(
+            grid_oracles.occupancy[rows],  # footprint-dilated occupancy [B, H, W]
+            starts[rows], goals[rows], batched([s.origin for s in scenarios])[rows],
+            batched([s.resolution for s in scenarios])[rows], config.trajectory_length,
+        ), mesh)
     generator = torch.Generator(device=device).manual_seed(seed)
     states = planner.init_batch(generator, starts, goals, bounds, oracles, trajectories)
     solve_kw = dict(max_iterations=max_iterations, min_iterations=min_iterations,
@@ -218,6 +238,7 @@ def run_grid_suite(
         paths, lengths, feasible, rep_mask = _shortcut_pass(
             solver, oracles, paths, lengths, feasible,
             torch.Generator(device=device).manual_seed(seed ^ 0x5C0C), shortcut_trials,
+            mesh=mesh,
         )
         repaired_total += int(rep_mask.sum())  # base batch: one lane == one problem
 
@@ -261,7 +282,7 @@ def run_grid_suite(
             r_paths_flat, r_len_flat, r_feas_flat, r_repaired_flat = _shortcut_pass(
                 solver, oracles_f, r_paths_flat, r_len_flat, r_feas_flat,
                 torch.Generator(device=device).manual_seed(retry_seed ^ 0x5C0C),
-                shortcut_trials,
+                shortcut_trials, mesh=mesh,
             )
         r_paths = r_paths_flat[:total].reshape(len(failed), r, *paths.shape[1:])
         r_feas = r_feas_flat[:total].reshape(len(failed), r)

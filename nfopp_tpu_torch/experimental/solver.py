@@ -75,6 +75,16 @@ class ExperimentalConstrainedSolver(ConstrainedSolver):
             )
         return super().with_aot(prefix)
 
+    def with_mesh(self, mesh):
+        """The experimental orders and `run_batch` run in one process: a mesh
+        of ranks (one with a process group) is refused."""
+        if mesh.distributed:
+            raise NotImplementedError(
+                "ExperimentalConstrainedSolver runs in one process; shard the batch with "
+                "ConstrainedSolver"
+            )
+        return super().with_mesh(mesh)
+
     # ------------------------------------------------ jacobi / merged orders
 
     def _field_and_trajectory(self, state, oracle_params, noise, with_field=None,

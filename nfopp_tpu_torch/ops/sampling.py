@@ -5,7 +5,8 @@ The JAX package splits a PRNG key per problem and per step. The port draws
 each step's noise as [B, ...] blocks from one `torch.Generator` for the whole
 batch (`GeneratorNoise`), so problem i's stream depends on the batch it was
 solved in. Any object with the same two methods can stand in for it: the
-parity tests hand in JAX's own draws that way.
+parity tests hand in JAX's own draws that way. On a mesh of ranks,
+`ShardNoise` draws the global block and keeps this rank's rows.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import torch
 
 __all__ = [
     "GeneratorNoise",
+    "ShardNoise",
     "gumbel_noise",
     "gumbel_topk_indices",
     "gumbel_topk_log_indices",
@@ -40,6 +42,30 @@ class GeneratorNoise:
     def normal(self, shape, device) -> torch.Tensor:
         g = self.generator
         return torch.randn(shape, generator=g, device=g.device).to(device)
+
+
+class ShardNoise:
+    """Noise source of one rank's rows of a sharded batch: each [b, ...]
+    block is drawn as the whole [total, ...] block from `source` (seeded the
+    same on every rank) and cut to rows `rows`, so problem i's stream does
+    not depend on how many ranks share the batch."""
+
+    def __init__(self, source, rows: slice, total: int):
+        self.source = GeneratorNoise(source) if isinstance(source, torch.Generator) else source
+        self.rows = rows
+        self.total = total
+
+    def _rows(self, draw, shape, device) -> torch.Tensor:
+        if shape[0] != len(range(self.total)[self.rows]):
+            raise ValueError(f"a block of {shape[0]} rows drawn for rows {self.rows} of "
+                             f"{self.total}")
+        return draw((self.total,) + tuple(shape[1:]), device)[self.rows]
+
+    def uniform(self, shape, device) -> torch.Tensor:
+        return self._rows(self.source.uniform, shape, device)
+
+    def normal(self, shape, device) -> torch.Tensor:
+        return self._rows(self.source.normal, shape, device)
 
 
 def gumbel_noise(uniform: torch.Tensor) -> torch.Tensor:

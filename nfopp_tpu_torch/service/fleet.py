@@ -10,9 +10,13 @@ not. Goal changes use `ConstrainedSolver.retarget`, which rebuilds the
 query-specific state while keeping the learned field, so a new goal never
 pays for relearning the world and never breaks the shared-field lockstep.
 
-The port serves the fleet on one device through `BatchPlanner` (JAX shards
-it over a mesh), and draws the batch init and every cycle's noise from one
-`torch.Generator` seeded with `seed` (JAX: a PRNG key).
+The port serves the fleet through `BatchPlanner` on a problem mesh of
+processes, one per card (`mesh=`; by default the most ranks of the default
+process group that divide the fleet, as JAX takes the most devices), or on
+one device alone. Every rank receives the same calls; each steps its rows of
+the fleet, rank 0's clock decides whether another chunk runs, and every rank
+returns every robot's path. The batch init and every cycle's noise come from
+one `torch.Generator` seeded with `seed` (JAX: a PRNG key) on every rank.
 
 Middleware-neutral like `ReplanningService`: a ROS/gRPC node is a thin
 adapter calling update_robot_pose / set_goal / replan_cycle.
@@ -25,9 +29,11 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..ops.sampling import GeneratorNoise
 from ..parallel.batch import BatchPlanner
+from ..parallel.mesh import batch_sharding, problem_mesh, rank_zero_decides
 from ..utils.tree import tree_map, tree_rows, tree_where
 from .postprocessor import PathPostprocessor
 
@@ -37,6 +43,24 @@ __all__ = ["FleetReplanningService"]
 def _tile(x: torch.Tensor, rows: int) -> torch.Tensor:
     """One world's oracle leaf (leading axis 1) as `rows` identical rows."""
     return x.repeat((rows,) + (1,) * (x.ndim - 1))
+
+
+def _fleet_mesh(n_robots: int, device):
+    """The mesh over the most ranks of the default process group that divide
+    the fleet (`fleet.py:80-87`); a rank left out of it raises."""
+    mesh = problem_mesh(device=device)
+    if not mesh.distributed:
+        return mesh
+    n = mesh.size
+    while n_robots % n != 0:
+        n -= 1
+    if n == mesh.size:
+        return mesh
+    group = dist.new_group(list(range(n)))  # every rank of the default group takes part
+    if mesh.rank >= n:
+        raise ValueError(f"rank {mesh.rank} is outside the fleet's mesh of {n} ranks "
+                         f"({n_robots} robots)")
+    return problem_mesh(device=device, group=group)
 
 
 class FleetReplanningService:
@@ -53,13 +77,15 @@ class FleetReplanningService:
         group_size: int | None = None,
         postprocessor: PathPostprocessor | None = None,
         seed: int = 0,
+        mesh=None,
     ):
         """`oracle_params`: the port's oracle of one world (leading axis 1).
         `device` defaults to the solver's (which is CUDA unless the solver
         was made for the CPU). group_size (shared-field mode only) sets the
         field-sharing granularity: one occupancy field per `group_size`
-        consecutive robots (default: the whole fleet); a robot's retarget
-        stays within its group's lockstep either way."""
+        consecutive robots (default: the whole fleet, which then spans every
+        rank); a robot's retarget stays within its group's lockstep either
+        way. `mesh` shards the fleet (default: see the module)."""
         self.solver = solver
         self.n_robots = n_robots
         self.planning_timeout = planning_timeout
@@ -81,8 +107,12 @@ class FleetReplanningService:
         self.shared_field = shared_field
         self.postprocessor = postprocessor
         self._mutex = threading.Lock()
-        self._planner = BatchPlanner(solver, device)
+        device = solver.device if device is None else device
+        mesh = _fleet_mesh(n_robots, device) if mesh is None else mesh
+        self._planner = BatchPlanner(solver, mesh, device=device)
         self.device = self._planner.device
+        self.mesh = self._planner.mesh
+        self._rows = batch_sharding(self.mesh, n_robots)  # this rank's robots
         self._bounds = torch.tensor(np.asarray(bounds, np.float32), device=self.device)
         self._active = np.zeros(n_robots, dtype=bool)
         self._poses = np.zeros((n_robots, 3), np.float32)
@@ -144,10 +174,13 @@ class FleetReplanningService:
         with self._mutex:
             self._active[robot] = False
 
-    def _retarget_lane(self, i: int, start: np.ndarray, goal: np.ndarray) -> Any:
-        """Retarget rows i:i+1 and write every leaf of that lane back (the
-        field leaves come back unchanged, so a group's replicas stay
-        bit-identical)."""
+    def _retarget_lane(self, robot: int, start: np.ndarray, goal: np.ndarray) -> Any:
+        """Retarget the robot's lane, on the rank that holds it, and write
+        every leaf of that lane back (the field leaves come back unchanged,
+        so a group's replicas stay bit-identical)."""
+        if not self._rows.start <= robot < self._rows.stop:
+            return self._states
+        i = robot - self._rows.start
         lane = self.solver.retarget(tree_rows(self._states, i, i + 1),
                                     start[None], goal[None])
         return tree_map(lambda full, one: torch.cat([full[:i], one, full[i + 1:]]),
@@ -173,13 +206,14 @@ class FleetReplanningService:
 
     def replan_cycle(self) -> dict[int, np.ndarray]:
         """One fleet cycle: track every robot's pose, optimize the whole
-        batch within the time budget (at least one chunk), return
-        {robot: path} for active robots."""
+        batch within the time budget (at least one chunk; on a mesh rank 0's
+        clock decides), return {robot: path} for active robots."""
         with self._mutex:
             if self._states is None or not self._active.any():
                 return {}
-            mask = torch.tensor(self._active & self._has_pose, device=self.device)
-            poses = torch.tensor(self._poses, device=self.device)
+            rows = self._rows
+            mask = torch.tensor((self._active & self._has_pose)[rows], device=self.device)
+            poses = torch.tensor(self._poses[rows], device=self.device)
             self._states = tree_where(mask, self.solver.update_start(self._states, poses),
                                       self._states)
             deadline = time.perf_counter() + self.planning_timeout
@@ -196,7 +230,7 @@ class FleetReplanningService:
                 # wait for the chunk before re-checking the clock (CUDA
                 # launches are asynchronous)
                 float(torch.sum(aux.trajectory_loss[:, -1]))
-                if time.perf_counter() >= deadline:
+                if rank_zero_decides(time.perf_counter() >= deadline, self.mesh):
                     break
             paths = self._planner.paths(self._states).cpu().numpy()
             active = [int(i) for i in np.nonzero(self._active)[0]]

@@ -28,6 +28,14 @@ draws its steps' noise from it in [B, ...] blocks. `fleet_replan_session`
 with subgroups=S takes S sources, one per sub-fleet (`subfleet_generators`
 makes them from one seed), so sub-fleet s equals an independent session of
 its robots with source s.
+
+Mesh: over a solver made by `with_mesh` (as `BatchPlanner(solver, mesh)`
+holds it) the fleet sessions take this rank's rows of the states, the goals
+and per-robot oracles of the whole fleet, and return this rank's states and
+the traces of the whole fleet (gathered once at the end). Each rank's
+bursts draw their rows of the block drawn for the whole (sub-)fleet, and a
+shared field spanning ranks averages over them (`_FieldSolver.with_mesh`).
+With sub-fleets, each rank's rows lie in one sub-fleet or hold whole ones.
 """
 from __future__ import annotations
 
@@ -36,6 +44,8 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
+from ..ops.sampling import ShardNoise
+from ..parallel.mesh import gather_batch
 from ..utils.tree import tree_map, tree_rows
 
 __all__ = [
@@ -95,6 +105,24 @@ def _stack(traces: list, lead: tuple) -> torch.Tensor:
     """Per-cycle tensors stacked and shaped [*lead, ...]."""
     stacked = torch.stack(traces)
     return stacked.reshape(lead + tuple(stacked.shape[1:]))
+
+
+def _mesh_rows(solver, local: int) -> tuple[int, int]:
+    """(first global row of this rank, global batch) of a fleet of which
+    this rank holds `local` robots."""
+    mesh = getattr(solver, "mesh", None)
+    if mesh is None:
+        return 0, local
+    return mesh.rank * local, mesh.size * local
+
+
+def _gather_robots(aux: tuple, solver, axis: int) -> tuple:
+    """The traces of every rank's robots, the robot axis `axis` gathered."""
+    mesh = getattr(solver, "mesh", None)
+    if mesh is None:
+        return aux
+    gathered = gather_batch(tuple(x.movedim(axis, 0) for x in aux), mesh)
+    return type(aux)(*(x.movedim(0, axis) for x in gathered))
 
 
 def subfleet_generators(seed: int, subgroups: int, device) -> list[torch.Generator]:
@@ -206,10 +234,12 @@ def fleet_dynamic_session(
     `dynamic_replan_session`. Traces are per robot ([C, R, ...]).
     """
     _check_steps(solver, steps_per_cycle)
-    return _dynamic_cycles(
-        solver, states, oracle_builder, oracle_xs, _f32(goals, states.start), step_dist,
-        goal_tolerance,
+    first, _ = _mesh_rows(solver, states.start.shape[0])
+    goals = _f32(goals, states.start)[first:first + states.start.shape[0]]
+    states, aux = _dynamic_cycles(
+        solver, states, oracle_builder, oracle_xs, goals, step_dist, goal_tolerance,
         lambda st, o: solver.run_grouped(st, o, steps_per_cycle, group_size, noise)[0])
+    return states, _gather_robots(aux, solver, 1)
 
 
 def _goal_cycles(solver, parts: list, oracles: list, goals: torch.Tensor, cycles_per_goal: int,
@@ -291,11 +321,14 @@ def fleet_replan_session(
     `group_size` must divide R/S, and draws from its own noise source:
     `noise` is then a sequence of S sources (e.g. `subfleet_generators`), and
     sub-fleet s is bit for bit an independent (R/S)-robot session with
-    source s. The schedule is the only change against subgroups=1.
+    source s. The schedule is the only change against subgroups=1. On a mesh
+    (see the module) `goals` and per-robot oracles cover the whole fleet.
     """
     _check_steps(solver, steps_per_cycle)
-    goals = _f32(goals, states.start)
-    robots = states.start.shape[0]
+    local = states.start.shape[0]
+    first, robots = _mesh_rows(solver, local)
+    goals = _f32(goals, states.start)[:, first:first + local]
+    oracle_params = tree_rows(oracle_params, first, first + local, batch=robots)
     sources = [noise]
     if subgroups != 1:
         if robots % subgroups != 0:
@@ -310,11 +343,22 @@ def fleet_replan_session(
             raise ValueError(f"subgroups={subgroups} needs one noise source per sub-fleet, "
                              f"got {len(sources)}")
     sub = robots // subgroups
-    spans = [(s * sub, (s + 1) * sub) for s in range(subgroups)]
+    if sub % local != 0 and local % sub != 0:
+        raise ValueError(f"sub-fleets of {sub} robots neither hold whole ranks of {local} "
+                         "robots nor fit whole into one")
+    spans, bursts = [], []  # this rank's rows of each sub-fleet it holds, and its burst
+    for s, source in enumerate(sources):
+        lo, hi = max(s * sub, first), min((s + 1) * sub, first + local)
+        if lo >= hi:
+            continue
+        if getattr(solver, "mesh", None) is not None:
+            source = ShardNoise(source, slice(lo - s * sub, hi - s * sub), sub)
+        spans.append((lo - first, hi - first))
+        bursts.append(lambda st, o, source=source: solver.run_grouped(
+            st, o, steps_per_cycle, group_size, source)[0])
     parts, aux = _goal_cycles(
         solver, [tree_rows(states, lo, hi) for lo, hi in spans],
-        [tree_rows(oracle_params, lo, hi, batch=robots) for lo, hi in spans], goals,
-        cycles_per_goal, follow_index,
-        [lambda st, o, source=source: solver.run_grouped(st, o, steps_per_cycle, group_size,
-                                                         source)[0] for source in sources])
-    return parts[0] if subgroups == 1 else tree_map(lambda *xs: torch.cat(xs), *parts), aux
+        [tree_rows(oracle_params, lo, hi, batch=local) for lo, hi in spans], goals,
+        cycles_per_goal, follow_index, bursts)
+    states = parts[0] if len(parts) == 1 else tree_map(lambda *xs: torch.cat(xs), *parts)
+    return states, _gather_robots(aux, solver, 2)

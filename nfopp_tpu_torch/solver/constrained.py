@@ -22,6 +22,13 @@ consecutive problems (one map) keeps one field, in lockstep replicas that
 start identical (`init_state(group_size=...)`) and step on the group's mean
 field gradient. The run loop and the field update are shared with
 `HolonomicSolver` through `_FieldSolver`.
+
+`with_mesh(mesh)` makes a copy whose batches are one rank's rows of a batch
+sharded over a problem mesh (`parallel/mesh.py`): every random block is drawn
+whole from a generator seeded alike on every rank and cut to this rank's
+rows, a shared-field group that spans ranks averages its gradients with one
+all_reduce per field step, and the run loop's host decision is agreed by all
+ranks.
 """
 from __future__ import annotations
 
@@ -46,7 +53,8 @@ from ..ops.reparametrize import (
     reparametrize_constraint_multipliers,
     reparametrize_se2,
 )
-from ..ops.sampling import GeneratorNoise, uniform_box_points
+from ..ops.sampling import GeneratorNoise, ShardNoise, uniform_box_points
+from ..parallel.mesh import all_over_problems, sum_over_ranks
 from ..utils.device import check_device
 from ..utils.tree import tree_copy_, tree_leaves, tree_map, tree_where
 from .adam import AdamState, adam_init, adam_update
@@ -152,6 +160,8 @@ class _FieldSolver:
     """
 
     _pose_dim = 3
+    # set by `with_mesh`: the problem mesh whose ranks each hold rows of the batch
+    mesh = None
 
     def __init__(self, config: SolverConfig, oracle_fn: OracleFn, device, who: str):
         self.config = config
@@ -177,6 +187,83 @@ class _FieldSolver:
         return adam_update(grads, opt_state, params, self.config.trajectory_lr, b1, b2,
                            self.config.adam_eps)
 
+    # ------------------------------------------------------------ the mesh
+
+    def with_mesh(self, mesh):
+        """A copy of this solver whose batches hold one rank's rows of a
+        batch sharded over `mesh` (`parallel.mesh.ProblemMesh`): the rows
+        [rank*b, (rank+1)*b) of a global batch of mesh.size*b problems."""
+        solver = copy.copy(self)
+        solver.mesh = mesh
+        return solver
+
+    def _block_rows(self, batch: int, per: int = 1) -> tuple[int, slice]:
+        """(rows of the global block, this rank's rows of it) for a block
+        with one row per `per` consecutive problems, this rank holding
+        `batch` problems."""
+        rank, size = (0, 1) if self.mesh is None else (self.mesh.rank, self.mesh.size)
+        lo, hi = rank * batch // per, ((rank + 1) * batch - 1) // per + 1
+        return size * batch // per, slice(lo, hi)
+
+    def _rand(self, generator: torch.Generator, batch: int, shape: tuple, per: int = 1):
+        """Uniform draws [rows, *shape] from `generator`, one row per `per`
+        problems: this rank's rows of the block drawn for the global batch."""
+        total, rows = self._block_rows(batch, per)
+        u = torch.rand((total,) + tuple(shape), generator=generator, device=generator.device)
+        return u[rows].to(self.device)
+
+    def _init_field(self, generator: torch.Generator, batch: int, group_size: int = 1):
+        """Field parameters of `batch` problems, drawn once per group of
+        `group_size` over the global batch and repeated over this rank's rows
+        of each group."""
+        total, rows = self._block_rows(batch, group_size)
+        params = init_onf_params(generator, self.config.onf, total, self.device)
+        return tree_map(lambda x: x[rows].repeat_interleave(min(group_size, batch), dim=0),
+                        params)
+
+    def _noise(self, noise, batch: int):
+        """The noise source of a step of `batch` problems: on a mesh, this
+        rank's rows of every block drawn for the global batch."""
+        noise = _as_noise(noise)
+        if self.mesh is None or self.mesh.size == 1 or isinstance(noise, ShardNoise):
+            return noise
+        total, rows = self._block_rows(batch)
+        return ShardNoise(noise, rows, total)
+
+    def _check_group_size(self, batch: int, group_size: int) -> None:
+        """A group lies inside this rank's rows (group_size divides them)
+        or spans whole ranks (a multiple of them dividing the global batch)."""
+        if group_size >= 1 and batch % group_size == 0:
+            return
+        size = 1 if self.mesh is None else self.mesh.size
+        if size == 1:
+            raise ValueError(f"batch {batch} not divisible by group_size {group_size}")
+        if group_size % batch != 0 or (size * batch) % group_size != 0:
+            raise ValueError(
+                f"group_size {group_size} is neither a divisor of this rank's batch {batch} "
+                f"nor a multiple of it dividing the global batch {size * batch}"
+            )
+
+    def _group_mean_grads(self, grads, batch: int, group_size: int):
+        """Each group's mean gradient on every replica. A group inside this
+        rank's rows averages locally; a group spanning ranks sums its rows
+        here, meets the other ranks in ONE all_reduce over every leaf
+        flattened (each spanning group in its own slot, so every rank gets the
+        same bits) and divides by group_size."""
+        if group_size <= batch:
+            return tree_map(lambda g: _group_mean(g, group_size), grads)
+        leaves = tree_leaves(grads)
+        flat = torch.cat([torch.sum(g, dim=0).reshape(-1) for g in leaves])
+        slots, slot = self._block_rows(batch, group_size)
+        if slots == 1:
+            wire = flat[None]
+        else:
+            wire = torch.zeros((slots, flat.numel()), dtype=flat.dtype, device=flat.device)
+            wire[slot] = flat
+        mean = sum_over_ranks(wire, self.mesh)[slot][0] / group_size
+        pieces = iter(torch.split(mean, [g[0].numel() for g in leaves]))
+        return tree_map(lambda g: next(pieces).reshape(g.shape[1:]).expand(g.shape), grads)
+
     # ------------------------------------------------------------------ init
 
     def _pretrain_field(self, state, oracle_params, generator, group_size: int = 1):
@@ -190,14 +277,14 @@ class _FieldSolver:
         bounds = state.bounds[::group_size]
         oracle_params = _group_rows(oracle_params, batch, group_size)
         for _ in range(cfg.init_collision_iteration):
-            u = torch.rand((bounds.shape[0], cfg.init_collision_points, self._pose_dim),
-                           generator=generator, device=generator.device).to(self.device)
+            u = self._rand(generator, batch, (cfg.init_collision_points, self._pose_dim),
+                           group_size)
             points = uniform_box_points(u, bounds, self._pose_dim == 3)
             truth = self.oracle_fn(oracle_params, points)
             _, grads = field_loss_and_grad(cfg, params, points, truth)
             params, opt_state = self._field_adam(grads, opt_state, params)
-        params, opt_state = tree_map(lambda x: x.repeat_interleave(group_size, dim=0),
-                                     (params, opt_state))
+        params, opt_state = tree_map(
+            lambda x: x.repeat_interleave(min(group_size, batch), dim=0), (params, opt_state))
         return state._replace(field_params=params, field_opt_state=opt_state)
 
     # ------------------------------------------------------------------ step
@@ -209,7 +296,7 @@ class _FieldSolver:
     def step(self, state, oracle_params: Any, noise):
         """One step with the reference's dynamic schedule, decided per problem
         from step_count (reparametrization computed for all, kept where due)."""
-        noise = _as_noise(noise)
+        noise = self._noise(noise, state.start.shape[0])
         state, field_loss, traj_loss = self._field_and_trajectory(state, oracle_params, noise)
         due = state.step_count % self.config.reparametrize_trajectory_freq == 0
         state = tree_where(due, self._reparametrize(state), state)
@@ -243,7 +330,7 @@ class _FieldSolver:
         """Step with the reparametrization (and optionally the field update)
         decided by the caller, as `run`'s static schedule does; group_size > 1
         for the shared-field group mode (`run_grouped`)."""
-        noise = _as_noise(noise)
+        noise = self._noise(noise, state.start.shape[0])
         state, field_loss, traj_loss = self._field_and_trajectory(
             state, oracle_params, noise, with_field, group_size
         )
@@ -264,7 +351,7 @@ class _FieldSolver:
         truth = self.oracle_fn(oracle_params, sample.train_points)
         loss, grads = field_loss_and_grad(cfg, state.field_params, sample.train_points, truth)
         if group_size > 1:
-            grads = tree_map(lambda g: _group_mean(g, group_size), grads)
+            grads = self._group_mean_grads(grads, state.start.shape[0], group_size)
         return sample, loss, grads
 
     def _apply_field_update(self, state, sample, grads):
@@ -305,13 +392,14 @@ class _FieldSolver:
         init_state / update_* / set_boundaries / retarget) the schedule is
         static (`scan_chunked`, or the captured chunk program of a solver made
         by `with_aot`); otherwise every step decides from step_count (`step`).
-        Reading step_count costs one device sync per call.
+        Reading step_count costs one device sync per call; on a mesh the
+        ranks agree on the schedule (one small all_reduce).
         """
         freq = self.config.reparametrize_trajectory_freq
-        aligned = freq > 1 and bool((state.step_count % freq == 0).all())
+        aligned = freq > 1 and all_over_problems(state.step_count % freq == 0, self.mesh)
         if aligned and num_steps % freq == 0:
             return self._static_run(state, oracle_params, num_steps, noise)
-        noise = _as_noise(noise)
+        noise = self._noise(noise, state.start.shape[0])
         aux = []
         for _ in range(num_steps):
             state, a = self.step(state, oracle_params, noise)
@@ -353,7 +441,9 @@ class _FieldSolver:
         `step_static`. On the card the noise must come from a CUDA
         `torch.Generator` (or a `GeneratorNoise` over one); on the CPU the
         chunk runs eagerly. `aot_events` lists each program the copy resolved:
-        captured (loaded False) or taken from the process's store."""
+        captured (loaded False) or taken from the process's store. On a mesh,
+        a shared-field group that spans ranks is refused: its all_reduce (over
+        gloo, through the host) cannot be captured into a CUDA graph."""
         solver = copy.copy(self)
         solver.aot_prefix = prefix
         solver.aot_events = []
@@ -376,6 +466,12 @@ class _FieldSolver:
         cfg = self.config
         freq = cfg.reparametrize_trajectory_freq
         batch = state.start.shape[0]
+        if group_size > batch:
+            raise ValueError(
+                f"a captured run cannot hold a shared-field group spanning ranks (group_size "
+                f"{group_size} over {batch} problems per rank): the group's all_reduce over gloo "
+                "goes through the host, which a CUDA graph cannot capture; run without with_aot"
+            )
         on_card = self.device.type == "cuda"
         if on_card:
             noise = _program_generator(noise)
@@ -463,20 +559,20 @@ class ConstrainedSolver(_FieldSolver):
         over it, so a group's replicas start identical (JAX gives them one
         `field_key`, `constrained.py:157`); each problem still draws its own
         replay buffer. A group must share one map: B divisible by group_size,
-        equal bounds and oracle leaves within each group.
+        equal bounds and oracle leaves within each group. On a mesh the
+        arguments are this rank's rows, every draw is cut from the global
+        batch's block, and a group may span whole ranks.
         """
         cfg = self.config
         start, goal, bounds = self._tensor(start), self._tensor(goal), self._tensor(bounds)
         batch = start.shape[0]
         if group_size != 1:
-            _check_groups(batch, group_size, bounds, oracle_params)
+            self._check_group_size(batch, group_size)
+            _check_groups(batch, min(group_size, batch), bounds, oracle_params)
         trajectory = (self.initial_trajectory(start, goal) if trajectory is None
                       else self._tensor(trajectory))
-        field_params = tree_map(
-            lambda x: x.repeat_interleave(group_size, dim=0),
-            init_onf_params(generator, cfg.onf, batch // group_size, self.device))
-        u = torch.rand((batch, cfg.collision_point_count, 3), generator=generator,
-                       device=generator.device).to(self.device)
+        field_params = self._init_field(generator, batch, group_size)
+        u = self._rand(generator, batch, (cfg.collision_point_count, 3))
         n = cfg.trajectory_length
         state = ConstrainedState(
             trajectory=trajectory,
@@ -622,11 +718,7 @@ class ConstrainedSolver(_FieldSolver):
         """
         freq = self.config.reparametrize_trajectory_freq
         _check_chunkable("run_grouped", num_steps, freq)
-        if states.trajectory.shape[0] % group_size != 0:
-            raise ValueError(
-                f"batch {states.trajectory.shape[0]} not divisible by "
-                f"group_size {group_size}"
-            )
+        self._check_group_size(states.trajectory.shape[0], group_size)
         self._check_static_field_stride("shared-field mode")
         return self._static_run(states, oracle_params, num_steps, noise, group_size)
 

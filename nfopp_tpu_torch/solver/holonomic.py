@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from ..kernels import collision_terms
-from ..models.onf import init_onf_params, params_from_jax
+from ..models.onf import params_from_jax
 from ..ops.losses import distance_loss
 from ..ops.math import linspace
 from ..ops.reparametrize import reparametrize_xy
@@ -82,9 +82,8 @@ class HolonomicSolver(_FieldSolver):
         batch = start.shape[0]
         trajectory = (self.initial_trajectory(start, goal) if trajectory is None
                       else self._tensor(trajectory))
-        field_params = init_onf_params(generator, cfg.onf, batch, self.device)
-        u = torch.rand((batch, cfg.collision_point_count, 2), generator=generator,
-                       device=generator.device).to(self.device)
+        field_params = self._init_field(generator, batch)
+        u = self._rand(generator, batch, (cfg.collision_point_count, 2))
         state = HolonomicState(
             trajectory=trajectory,
             field_params=field_params,

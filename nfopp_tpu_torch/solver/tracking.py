@@ -13,7 +13,10 @@ JAX's `lax.while_loop` over vmapped chunks becomes a Python loop over
 problems already done are frozen (`tree_where`, state and counters alike),
 and the loop ends when every problem is done or `end_chunk` is reached, which
 costs one host sync per chunk. Frozen problems are still computed, and still
-draw noise, as vmap's lanes are.
+draw noise, as vmap's lanes are. On a problem mesh (the solver's `mesh`, or
+the `mesh` given) each rank holds rows of the batch, and the ranks agree on
+whether any problem is still active (one small all_reduce per chunk), so all
+run the same chunks, as the 1-rank loop does.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from typing import Any, NamedTuple
 import torch
 
 from ..ops.math import dense_path
+from ..parallel.mesh import any_over_problems
 from ..utils.tree import tree_where
 
 __all__ = [
@@ -121,13 +125,17 @@ def run_tracking_segment(
     check_freq: int = 50,
     samples_per_segment: int = 5,
     stop_on_plateau: bool = True,
+    mesh=None,
 ) -> TrackingCarry:
     """Advance the tracked solve until each problem has `end_chunk` chunks
     done or has stopped early. Chaining segments is the same computation as
-    one segment over the whole range (with the same noise)."""
+    one segment over the whole range (with the same noise). On a mesh
+    (default: the solver's) the loop runs while a problem of any rank is
+    active."""
+    mesh = getattr(solver, "mesh", None) if mesh is None else mesh
     while True:
         active = ~carry.done & (carry.chunk < end_chunk)
-        if not bool(active.any()):
+        if not any_over_problems(active, mesh):
             return carry
         stepped, _ = solver.run(carry.state, oracle_params, check_freq, noise)
         state = tree_where(active, stepped, carry.state)

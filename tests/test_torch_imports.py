@@ -14,6 +14,7 @@ COMPARISON_SCRIPTS = ("run_gpmp2_torch", "analyze_results_torch", "run_planner_t
 SUITE_SCRIPTS = ("compare_suites_torch", "shortcut_gains_torch", "run_sweep_torch",
                  "two_walls_reliability_torch", "compare_with_reference_torch",
                  "compare_holonomic_torch")
+MESH_SCRIPTS = ("run_multihost_torch",)
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|optax|flax|nfopp_tpu)(\.|\s|$)", re.M)
 
 
@@ -38,7 +39,8 @@ def test_importing_the_port_loads_no_jax():
 
 def test_no_jax_import_statements():
     files = sorted((ROOT / "nfopp_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
-        ROOT / "scripts" / f"{name}.py" for name in SCRIPTS + COMPARISON_SCRIPTS + SUITE_SCRIPTS]
+        ROOT / "scripts" / f"{name}.py"
+        for name in SCRIPTS + COMPARISON_SCRIPTS + SUITE_SCRIPTS + MESH_SCRIPTS]
     assert len(files) > 20
     for path in files:
         match = FORBIDDEN.search(path.read_text())
@@ -79,6 +81,8 @@ def test_no_jax_import_statements():
     "nfopp_tpu_torch.utils.factory",
     "nfopp_tpu_torch.utils.timer",
     "nfopp_tpu_torch.utils.profiling",
+    "nfopp_tpu_torch.parallel.mesh",
+    "nfopp_tpu_torch.graft_entry",
 ])
 def test_the_batch_path_modules_load_no_jax(module):
     """The bf16 batch path's modules, the tracked, grouped, holonomic and
@@ -162,6 +166,27 @@ def test_the_suite_scripts_load_no_jax(name):
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'flax', 'nfopp_tpu', 'compare_suites', "
         "'run_benchmark', 'shortcut_gains'))\n"
+        "assert not bad, bad\n"
+    )
+    result = subprocess.run([sys.executable, "-I", "-c", code], capture_output=True, text=True,
+                            timeout=120)
+    assert result.returncode == 0, result.stderr
+
+
+@pytest.mark.parametrize("name", MESH_SCRIPTS)
+def test_the_mesh_script_loads_no_jax(name):
+    """The multi-process script, loaded as a module as chip_smoke.py loads
+    it, with the mesh it drives."""
+    code = (
+        "import importlib.util, sys\n"
+        f"path = {str(ROOT / 'scripts')!r} + '/{name}.py'\n"
+        f"spec = importlib.util.spec_from_file_location({name!r}, path)\n"
+        "module = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(module)\n"
+        "import nfopp_tpu_torch.parallel.mesh, nfopp_tpu_torch.graft_entry\n"
+        "assert callable(module.main) and callable(module.run)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'optax', 'flax', 'nfopp_tpu'))\n"
         "assert not bad, bad\n"
     )
     result = subprocess.run([sys.executable, "-I", "-c", code], capture_output=True, text=True,
