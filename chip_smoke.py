@@ -142,6 +142,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
      dryrun_multichip(2) with both ranks on cuda:0, every stage passing; (d)
      (b) over nccl on two cards where there are two, else a line saying why
      not. The launches of (a) and (b) join the kernels' counts.
+ 16. the bench on the card (bench_torch.py, the counterpart of bench.py):
+     (a) the script as a subprocess, as its users run it, B=256 x 1000 steps
+     in six modes: the default (bf16, captured) with --feas-sweep 3
+     --anytime, --f32, --f32 --eager, --multi 8, --jacobi and --merged; each
+     prints one JSON line, at least 0.98 feasible, each of its mode's
+     kernels once per timed step and no other (--merged none); (b) captured
+     against eager, B=256 x 100 steps from one init and one generator seed,
+     every leaf of the final state bit-identical: run_batch P=8 (bf16), the
+     Jacobi order (f32), the merged order (f32 and bf16) and grouped merged
+     (groups of 8); then kernels 4 and 5 and the collision kernels' bf16
+     mode held against their plain versions on the captured run_batch's own
+     next-step inputs; (c) scripts/profile_step_torch.py's five ablation
+     variants with --aot, B=256 x 50 steps. The launches of (a)'s timed
+     loops and of (b)'s captured runs join the kernels' counts.
 After each solve of phases 7-10 (the tracked and grouped paths, the holonomic
 path, both planners and the suite), every kernel of that path is held against
 its plain version on the inputs the path's next step gives it, at the path's
@@ -1349,7 +1363,8 @@ def per_problem_us(seconds: float, steps: float, batch: int) -> float:
     return seconds / steps / batch * 1e6
 
 
-def hold_path_kernels(what: str, solver, state, oracle, seed: int) -> dict:
+def hold_path_kernels(what: str, solver, state, oracle, seed: int,
+                      problems_per_program: int | None = None) -> dict:
     """Each kernel of `solver`'s path against its plain version on the inputs
     one more step from `state` would give it (noise from a generator seeded
     with `seed`): the field's parameters, the candidates it scores [B, K+N-1,
@@ -1357,9 +1372,11 @@ def hold_path_kernels(what: str, solver, state, oracle, seed: int) -> dict:
     +K+R, d] (field_grad), and the trajectory's collision points with their
     multipliers, beta and the trajectory loss's cotangents (collision terms,
     forward and backward; zero multipliers and beta 1 on a holonomic path).
-    Phase 3's tolerances, its ReLU-kink recomputation and, in bf16,
-    onf_apply's casts and the tie allowance. Returns the largest difference
-    of each kernel."""
+    With `problems_per_program` (the batch path, `run_batch`) the field's two
+    passes are the multi-problem kernels' (onf_multi, field_grad_multi, their
+    bf16 casts "multi"). Phase 3's tolerances, its ReLU-kink recomputation
+    and, in bf16, the path's casts and the tie allowance. Returns the largest
+    difference of each kernel."""
     import torch
 
     from nfopp_tpu_torch import kernels
@@ -1375,17 +1392,22 @@ def hold_path_kernels(what: str, solver, state, oracle, seed: int) -> dict:
     pre = field_sample_pre(cfg, noise, state.prev_trajectory, state.bounds)
     candidates = torch.cat([state.buffer_points, pre.fine], dim=1)
     ages = torch.cat([state.buffer_ages, torch.zeros_like(pre.fine[..., 0])], dim=1)
-    logits = kernels.onf_forward(params, candidates, onf)
-    errors = {"onf_forward": hold(f"{what} onf_forward", [logits],
-                                  [kernels.onf_forward_plain(params, candidates, onf)],
-                                  [(1e-4, 2e-4)],
-                                  kinks=(params, candidates, onf, logits_f64(onf, casts)),
-                                  bf16=bf16)}
+    if problems_per_program is None:
+        score, name = kernels.onf_forward(params, candidates, onf), "onf_forward"
+        plain, score_casts = kernels.onf_forward_plain(params, candidates, onf), casts
+    else:
+        score = kernels.onf_multi(params, candidates, onf, problems_per_program)
+        name, plain = "onf_multi", kernels.onf_multi_plain(params, candidates, onf)
+        score_casts = "multi" if bf16 else None
+    errors = {name: hold(f"{what} {name}", [score], [plain], [(1e-4, 2e-4)],
+                         kinks=(params, candidates, onf, logits_f64(onf, score_casts)),
+                         bf16=bf16)}
 
-    sample = field_sample_post(cfg, pre, logits[..., 0], candidates, ages)
+    sample = field_sample_post(cfg, pre, score[..., 0], candidates, ages)
     points = sample.train_points
-    errors["field_grad"] = hold_field_grad(what, params, points,
-                                           solver.oracle_fn(oracle, points), onf)
+    errors["field_grad" if problems_per_program is None else "field_grad_multi"] = (
+        hold_field_grad(what, params, points, solver.oracle_fn(oracle, points), onf,
+                        problems_per_program))
 
     batch, n = state.trajectory.shape[:2]
     if hasattr(state, "collision_multipliers"):  # the constrained solver's loss
@@ -1410,30 +1432,37 @@ def hold_path_kernels(what: str, solver, state, oracle, seed: int) -> dict:
         collision_grads(kernels.collision_terms_plain, params, x, mult, onf, beta, weights),
         [(5e-4, 1e-5), (5e-4, 1e-6)],
         kinks=(params, x, onf, collision_f64(mult, weights, onf, beta, casts)), bf16=bf16)
-    shapes = {"onf_forward": candidates.shape, "field_grad": points.shape,
-              "collision": x.shape}
+    shapes = {name: candidates.shape, "field_grad": points.shape, "collision": x.shape}
     log(f"{what}: kernels held on the path's own inputs {dict(shapes)}: {errors}")
     return {"max_abs_err": errors,
             "shapes": {name: list(shape) for name, shape in shapes.items()}}
 
 
-def hold_field_grad(what: str, params, points, truth, onf) -> float:
+def hold_field_grad(what: str, params, points, truth, onf,
+                    problems_per_program: int | None = None) -> float:
     """The field-gradient kernel (loss and every parameter gradient) against
     its plain version on training points [B, M, d] and their labels, with
     phase 3's tolerances and ReLU-kink recomputation (bf16: onf_apply's
-    casts and the tie allowance); returns the largest difference."""
+    casts and the tie allowance); with `problems_per_program`, the
+    multi-problem kernel (its casts "multi"). Returns the largest
+    difference."""
     from nfopp_tpu_torch import kernels
     from nfopp_tpu_torch.utils.tree import tree_leaves
 
     bf16 = onf.compute_dtype == "bfloat16"
-    loss, grads = kernels.field_grad(params, points, truth, onf)
-    ref_loss, ref_grads = kernels.field_grad_plain(params, points, truth, onf)
+    if problems_per_program is None:
+        name, casts = "field_grad", "apply" if bf16 else None
+        loss, grads = kernels.field_grad(params, points, truth, onf)
+        ref_loss, ref_grads = kernels.field_grad_plain(params, points, truth, onf)
+    else:
+        name, casts = "field_grad_multi", "multi" if bf16 else None
+        loss, grads = kernels.field_grad_multi(params, points, truth, onf, problems_per_program)
+        ref_loss, ref_grads = kernels.field_grad_multi_plain(params, points, truth, onf)
     return max(
-        hold(f"{what} field_grad loss", [loss], [ref_loss], [(1e-5, 1e-6)], bf16=bf16),
-        hold(f"{what} field_grad gradients", tree_leaves(grads), tree_leaves(ref_grads),
+        hold(f"{what} {name} loss", [loss], [ref_loss], [(1e-5, 1e-6)], bf16=bf16),
+        hold(f"{what} {name} gradients", tree_leaves(grads), tree_leaves(ref_grads),
              [(2e-4, 2e-5)] * len(tree_leaves(grads)),
-             kinks=(params, points, onf, field_grad_f64(truth, onf, "apply" if bf16 else None)),
-             bf16=bf16))
+             kinks=(params, points, onf, field_grad_f64(truth, onf, casts)), bf16=bf16))
 
 
 def tracked_solve(device, seed: int, batch: int):
@@ -3047,6 +3076,150 @@ def mesh_pair_metrics(name: str, pair: list, grouped: list, one: dict) -> dict:
     }
 
 
+# phase 16, the bench on the card: bench_torch.py in six modes as its users run
+# it (B=256 x 1000 steps), captured against eager for run_batch and the
+# experimental orders, and scripts/profile_step_torch.py --aot.
+# BENCH_MODES: (line, bench_torch.py's flags, the mode's kernels, captured).
+BENCH_MODES = (("bench_default", ("--feas-sweep", "3", "--anytime"), MAIN_PATH_BF16, True),
+               ("bench_f32", ("--f32",), MAIN_PATH, True),
+               ("bench_f32_eager", ("--f32", "--eager"), MAIN_PATH, False),
+               ("bench_multi8", ("--multi", "8"), BATCH_PATH, True),
+               ("bench_jacobi", ("--jacobi",), MAIN_PATH_BF16, True),
+               ("bench_merged", ("--merged",), (), True))
+BENCH_TIMEOUT = 600  # seconds for one bench process
+BENCH_FLOOR = 0.98  # the feasible fraction every mode must reach, as phases 4-6
+# CAPTURE_CELLS: (name, order, bf16, group size): captured against eager,
+# B=256 x CAPTURE_STEPS from one init and one generator seed
+CAPTURE_STEPS = 100
+CAPTURE_CELLS = (("batch_p8_bf16", "batch", True, 1), ("jacobi_f32", "jacobi", False, 1),
+                 ("merged_f32", "merged", False, 1), ("merged_bf16", "merged", True, 1),
+                 ("grouped_merged_f32_g8", "merged", False, GROUP_SIZE))
+ABLATION_STEPS = 50  # scripts/profile_step_torch.py's default
+
+
+def bench_modes(seed: int, card: str) -> tuple[list, dict]:
+    """Phase 16a: bench_torch.py as a subprocess in each of BENCH_MODES, one
+    after another. Each prints one JSON line, at least 0.98 feasible, the
+    card's line under `device`, each of the mode's kernels launched once per
+    timed step and no other kernel, captured unless --eager; the default
+    mode's seed sweep and anytime solve are there, its anytime file written.
+    Returns the (line, JSON) pairs and each kernel's launches in the timed
+    loops (launches per step x steps)."""
+    import subprocess
+    import tempfile
+
+    lines, launches = [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        anytime_out = pathlib.Path(tmp) / "anytime.json"
+        for line, flags, path, captured in BENCH_MODES:
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, str(ROOT / "bench_torch.py"), *flags, "--seed", str(seed),
+                 "--anytime-out", str(anytime_out)],
+                cwd=str(ROOT), capture_output=True, text=True, timeout=BENCH_TIMEOUT)
+            if proc.returncode != 0:
+                raise AssertionError(f"phase 16a {line}: bench_torch.py failed (rc "
+                                     f"{proc.returncode}):\n{proc.stderr[-3000:]}")
+            out = proc.stdout.strip().splitlines()
+            if len(out) != 1:
+                raise AssertionError(f"phase 16a {line}: {len(out)} lines on stdout, not one")
+            result = json.loads(out[0])
+            for text in proc.stderr.splitlines():
+                log(f"  {line}: {text}")
+            what = f"phase 16a {line}"
+            if result["feasible_fraction"] < BENCH_FLOOR:
+                raise AssertionError(f"{what}: feasible fraction {result['feasible_fraction']} "
+                                     f"below the {BENCH_FLOOR} floor")
+            if result["device"] != card or result["captured"] != captured:
+                raise AssertionError(f"{what}: device {result['device']!r}, captured "
+                                     f"{result['captured']}")
+            for name, per_step in result["launches_per_step"].items():
+                if per_step != (1.0 if name in path else 0.0):
+                    raise AssertionError(f"{what}: kernel {name} launched {per_step} times per "
+                                         f"step (path {path})")
+                launches[name] = launches.get(name, 0) + round(per_step * STEPS)
+            if "--anytime" in flags:
+                written = json.loads(anytime_out.read_text())
+                if result["anytime"]["iterations_max"] > STEPS or written["device"] != card:
+                    raise AssertionError(f"{what}: anytime {result['anytime']}")
+                if len(result["feas_sweep"]["feasible_fractions"]) != 4:
+                    raise AssertionError(f"{what}: feas sweep {result['feas_sweep']}")
+            result["process_s"] = time.perf_counter() - t0
+            lines.append((line, result))
+    return lines, launches
+
+
+def capture_agreement(device, seed: int) -> tuple[dict, dict]:
+    """Phase 16b: each of CAPTURE_CELLS eagerly and through a `with_aot` copy,
+    B=256 x CAPTURE_STEPS on the car scene from one init and a generator of
+    one seed each: every leaf of the final state bit-identical, twice (the
+    first captured run captures, the second replays the stored program), the
+    same kernels launched (BATCH_PATH for run_batch P=8, MAIN_PATH for Jacobi
+    f32, none for merged), the eager run timed beside the captured one (its
+    capture included, and after it); then kernels 4 and 5 (and the collision
+    kernels' bf16 mode) held against their plain versions on the captured
+    run_batch's own next-step inputs. Returns the metrics and the captured
+    runs' launches."""
+    import torch
+
+    from nfopp_tpu_torch import kernels
+    from nfopp_tpu_torch.experimental import ExperimentalConstrainedSolver
+    from nfopp_tpu_torch.solver import run_planner_config
+    from nfopp_tpu_torch.tools.scene import car_world
+    from nfopp_tpu_torch.worlds import rectangle_collision
+
+    p = PROBLEMS_PER_PROGRAM[-1]
+    oracle, start, goal, bounds = car_world(BATCH, device)
+    metrics, launches = {}, {}
+    for name, order, bf16, group_size in CAPTURE_CELLS:
+        cfg = bf16_config(run_planner_config()) if bf16 else run_planner_config()
+        flags = {} if order == "batch" else {f"{order}_step": True}
+        solver = ExperimentalConstrainedSolver(cfg, rectangle_collision, device=device, **flags)
+        state = solver.init_state(torch.Generator(device=device).manual_seed(seed), start, goal,
+                                  bounds, oracle, group_size=group_size)
+        path = BATCH_PATH if order == "batch" else MAIN_PATH if order == "jacobi" else ()
+
+        def run(slv):
+            g = torch.Generator(device=device).manual_seed(seed + 1)
+            if order == "batch":
+                return slv.run_batch(state, oracle, CAPTURE_STEPS, g, problems_per_program=p)
+            if group_size > 1:
+                return slv.run_grouped(state, oracle, CAPTURE_STEPS, group_size, g)
+            return slv.run(state, oracle, CAPTURE_STEPS, g)
+
+        captured_solver = solver.with_aot(f"agree-{name}")
+        seconds, finals = {}, {}
+        for mode, slv in (("eager", solver), ("captured", captured_solver),
+                          ("captured_again", captured_solver)):
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            finals[mode], _ = run(slv)
+            torch.cuda.synchronize()
+            seconds[mode] = time.perf_counter() - t0
+            check_launches(dict(kernels.LAUNCHES), path, CAPTURE_STEPS, f"phase 16b {name} {mode}")
+            if mode != "eager":
+                for k, n in kernels.LAUNCHES.items():
+                    launches[k] = launches.get(k, 0) + n
+        held = same_state(f"phase 16b {name}", finals["eager"], finals["captured"])
+        same_state(f"phase 16b {name} (replayed again)", finals["eager"], finals["captured_again"])
+        metrics[name] = {
+            "order": order, "compute_dtype": cfg.onf.compute_dtype, "group_size": group_size,
+            "steps": CAPTURE_STEPS, "eager_s": seconds["eager"],
+            "captured_s_with_capture": seconds["captured"],
+            "captured_s": seconds["captured_again"], "programs": captured_solver.aot_events,
+            "launches_per_step": {k: n / CAPTURE_STEPS for k, n in kernels.LAUNCHES.items() if n},
+            "against_eager": held,
+        }
+        if order == "batch":
+            metrics[name]["kernels_held"] = hold_path_kernels(
+                "phase 16b captured run_batch", captured_solver, finals["captured"], oracle,
+                seed + 16, problems_per_program=p)
+        log(f"phase 16b {name}: eager {seconds['eager']:.3f}s, captured "
+            f"{seconds['captured_again']:.3f}s per {CAPTURE_STEPS} steps, bit-identical")
+    return metrics, launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of weights, data and noise")
@@ -3253,6 +3426,23 @@ def main() -> int:
     for name in MAIN_PATH:
         launches[name] += mesh_launches[name]
     log(f"phase 15: {time.perf_counter() - t0:.1f}s")
+
+    # 16. the bench on the card: its timed loops' launches and the captured
+    # runs' join the kernels' counts
+    t0 = time.perf_counter()
+    bench_lines, bench_launches = bench_modes(args.seed, card)
+    for line, result in bench_lines:
+        print(json.dumps({line: result}), flush=True)
+    agreement, agreement_launches = capture_agreement(device, args.seed)
+    print(json.dumps({"capture_agreement": {**agreement, "card": card}}), flush=True)
+    ablation = load_script("profile_step_torch").profile_variants(
+        device, BATCH, ABLATION_STEPS, True, args.seed)
+    print(json.dumps({"step_ablation": {"batch": BATCH, "steps": ABLATION_STEPS,
+                                        "variants": ablation, "card": card}}), flush=True)
+    for counted in (bench_launches, agreement_launches):
+        for name, n in counted.items():
+            launches[name] += n
+    log(f"phase 16: {time.perf_counter() - t0:.1f}s")
 
     entries = []
     for name, res in kernel_results.items():

@@ -17,6 +17,12 @@
   the port's main solver already runs its field passes through the fused
   kernels (`kernels.onf_forward`, `field_grad`, `collision_terms`), so the
   flag selects the same path as leaving it off.
+
+Every variant captures (`with_aot`): `run`, `run_grouped` and the tracked
+loops replay one chunk program per 10-step chunk in the Jacobi and merged
+orders as in the default one, and `run_batch` replays its own
+(`<prefix>-batch-b<B>-p<P>`). A program's key holds the step order
+(`_step_order`) and, for `run_batch`, P.
 """
 from __future__ import annotations
 
@@ -65,15 +71,12 @@ class ExperimentalConstrainedSolver(ConstrainedSolver):
         self.merged_step = merged_step
         self.use_fused_field_grad = use_fused_field_grad
 
-    def with_aot(self, prefix: str):
-        """Only the default order is captured yet: the Jacobi and merged
-        orders and `run_batch` run eagerly (their capture is queued)."""
-        if self.jacobi_step or self.merged_step or self.use_fused_field_grad:
-            raise NotImplementedError(
-                "with_aot captures the default step order only; the jacobi_step, merged_step "
-                "and use_fused_field_grad variants run eagerly"
-            )
-        return super().with_aot(prefix)
+    def _step_order(self) -> str:
+        """The step order, "merged", "jacobi" or "default"
+        (`use_fused_field_grad` runs the default order's path): a captured
+        program's key holds it, so two orders of one config never share a
+        program."""
+        return "merged" if self.merged_step else "jacobi" if self.jacobi_step else "default"
 
     def with_mesh(self, mesh):
         """The experimental orders and `run_batch` run in one process: a mesh
@@ -142,6 +145,19 @@ class ExperimentalConstrainedSolver(ConstrainedSolver):
         states = states._replace(step_count=states.step_count + 1)
         return states, StepAux(field_loss, traj_loss)
 
+    def _batch_chunks(self, states, oracle_params: Any, num_steps: int, noise,
+                      problems_per_program: int) -> tuple[ConstrainedState, StepAux]:
+        """`num_steps` steps of `scan_chunked`'s schedule over `_step_batch`;
+        aux stacked [B, num_steps]."""
+        noise = _as_noise(noise)
+        states, aux = scan_chunked(
+            lambda s, r, f: self._step_batch(s, oracle_params, noise, r, problems_per_program,
+                                             with_field=f),
+            states, num_steps, self.config.reparametrize_trajectory_freq,
+            field_stride=self._static_field_stride(),
+        )
+        return states, StepAux(*(torch.stack(xs, dim=1) for xs in zip(*aux)))
+
     def run_batch(
         self, states: ConstrainedState, oracle_params: Any, num_steps: int, noise,
         problems_per_program: int = 8,
@@ -153,13 +169,16 @@ class ExperimentalConstrainedSolver(ConstrainedSolver):
         reparametrize_trajectory_freq == 0 and B % problems_per_program == 0,
         and, like the JAX version, every problem at a chunk's start on entry
         (step_count % freq == 0, as after init_state / update_*), which is not
-        checked. Noise as in `run`; aux is stacked [B, num_steps]."""
+        checked. Noise as in `run`; aux is stacked [B, num_steps]. On a copy
+        made by `with_aot` the chunks are replays of one captured program,
+        `<prefix>-batch-b<B>-p<P>`, with kernels 4, 5, 3a and 3b inside it."""
         freq = self.config.reparametrize_trajectory_freq
         _check_chunkable("run_batch", num_steps, freq)
-        noise = _as_noise(noise)
-        states, aux = scan_chunked(
-            lambda s, r, f: self._step_batch(s, oracle_params, noise, r, problems_per_program,
-                                             with_field=f),
-            states, num_steps, freq, field_stride=self._static_field_stride(),
+        if self.aot_prefix is None:
+            return self._batch_chunks(states, oracle_params, num_steps, noise,
+                                      problems_per_program)
+        return self._run_program(
+            f"batch-b{states.start.shape[0]}-p{problems_per_program}",
+            lambda s, o, n, g: self._batch_chunks(s, o, n, g, problems_per_program),
+            states, oracle_params, num_steps, noise, key_parts=(problems_per_program,),
         )
-        return states, StepAux(*(torch.stack(xs, dim=1) for xs in zip(*aux)))

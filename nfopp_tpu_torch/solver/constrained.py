@@ -410,9 +410,12 @@ class _FieldSolver:
         """`num_steps` steps (a multiple of the reparametrization freq) of the
         static schedule from a chunk's start: eagerly, or as replays of the
         captured chunk program for a solver made by `with_aot`."""
-        if self.aot_prefix is not None:
-            return self._run_program(state, oracle_params, num_steps, noise, group_size)
-        return self._chunks(state, oracle_params, num_steps, noise, group_size)
+        if self.aot_prefix is None:
+            return self._chunks(state, oracle_params, num_steps, noise, group_size)
+        name = f"chunk-b{state.start.shape[0]}" + (f"-g{group_size}" if group_size > 1 else "")
+        return self._run_program(
+            name, lambda s, o, n, g: self._chunks(s, o, n, g, group_size),
+            state, oracle_params, num_steps, noise, group_size)
 
     def _chunks(self, state, oracle_params: Any, num_steps: int, noise, group_size: int):
         """`num_steps` steps of `scan_chunked`'s schedule; aux stacked [B, num_steps]."""
@@ -450,17 +453,22 @@ class _FieldSolver:
         solver._aot_keys = set()
         return solver
 
-    def _chunk_in_place(self, state, oracle_params: Any, noise, group_size: int):
-        """One chunk of the static schedule with its final state written into
-        `state`'s own tensors: the captured program's body, whose input
-        buffers then carry the state to the next replay."""
-        new, aux = self._chunks(state, oracle_params, self.config.reparametrize_trajectory_freq,
-                                noise, group_size)
-        return tree_copy_(state, new), aux
+    def _step_order(self) -> str:
+        """The order of the field and trajectory updates in a step, part of a
+        captured program's key: "default" here (the trajectory reads the
+        updated field); a subclass with other orders names its own."""
+        return "default"
 
-    def _run_program(self, state, oracle_params: Any, num_steps: int, noise, group_size: int):
-        """`_static_run` as replays of the chunk program; each chunk's aux is
-        copied into [B, num_steps] buffers."""
+    def _run_program(self, name: str, chunks: Callable, state, oracle_params: Any,
+                     num_steps: int, noise, group_size: int = 1, key_parts: tuple = ()):
+        """Static-schedule steps as replays of one captured chunk program,
+        `<aot_prefix>-<name>`. `chunks(state, oracle_params, num_steps,
+        noise)` runs the schedule eagerly; the program's body is one chunk of
+        it (freq steps) with its final state written into the input's own
+        tensors, whose buffers then carry the state to the next replay. The
+        key holds the class, the oracle, the config, the step order, the
+        group size, the precision, the shapes and `key_parts`. Each chunk's
+        aux is copied into [B, num_steps] buffers."""
         from ..utils.aot import aot_or_compile, shape_digest
 
         cfg = self.config
@@ -477,13 +485,15 @@ class _FieldSolver:
             noise = _program_generator(noise)
         else:
             state = tree_map(torch.clone, state)  # uncaptured, the body writes into its input
-        name = f"chunk-b{batch}" + (f"-g{group_size}" if group_size > 1 else "")
+
+        def body(s, o, g):
+            new, aux = chunks(s, o, freq, g)
+            return tree_copy_(s, new), aux
+
         program = aot_or_compile(
-            f"{self.aot_prefix}-{name}",
-            lambda s, o, g: self._chunk_in_place(s, o, g, group_size),
-            (state, oracle_params, noise),
-            type(self).__name__, repr(self.oracle_fn), cfg, group_size, cfg.onf.compute_dtype,
-            shape_digest(state), shape_digest(oracle_params),
+            f"{self.aot_prefix}-{name}", body, (state, oracle_params, noise),
+            type(self).__name__, repr(self.oracle_fn), cfg, self._step_order(), group_size,
+            cfg.onf.compute_dtype, shape_digest(state), shape_digest(oracle_params), *key_parts,
         )
         if program.key not in self._aot_keys:
             self._aot_keys.add(program.key)

@@ -5,7 +5,7 @@ in f32, or with --bf16 in bf16 as bench.py runs it by default, B problems,
 seeded) on one CUDA card, in the default step order or, with --order, in
 the Jacobi order or the merged field+trajectory step
 (`ExperimentalConstrainedSolver(jacobi_step=True | merged_step=True)`), and
-with --aot (default order only) as replays of the captured chunk program
+with --aot (in any order) as replays of the captured chunk program
 (`solver.with_aot`, one CUDA graph per 10-step chunk, captured in the
 warm-up): `--warmup` steps, then
 `--steps` steps timed on the host clock, then the same number of steps under
@@ -19,7 +19,7 @@ graph replays per step. Prints one JSON object; the Chrome trace goes to
     python3 -m nfopp_tpu_torch.tools.profile_step --trace profiles/torch_step_trace.json
     python3 -m nfopp_tpu_torch.tools.profile_step --bf16 --trace profiles/torch_step_trace_bf16.json
     python3 -m nfopp_tpu_torch.tools.profile_step --order merged --trace profiles/merged.json
-    python3 -m nfopp_tpu_torch.tools.profile_step --aot [--bf16] --trace profiles/aot.json
+    python3 -m nfopp_tpu_torch.tools.profile_step --aot [--bf16] [--order merged] --trace profiles/aot.json
 """
 from __future__ import annotations
 
@@ -101,8 +101,6 @@ def main() -> int:
                         help="run the steps as replays of the captured chunk program")
     parser.add_argument("--trace", default="profiles/torch_step_trace.json")
     args = parser.parse_args()
-    if args.aot and args.order != "default":
-        parser.error("--aot captures the default order only")
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
         return 2

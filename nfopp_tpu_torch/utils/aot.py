@@ -17,7 +17,9 @@ the caller's parts; `shape_digest` for a program's arguments (structure,
 shapes, dtypes, devices), `content_digest` for constants it closes over.
 
 `aot_or_compile(name, fn, example_args, *key_parts)` on CUDA warms `fn` up
-on a side stream on clones of the arguments, captures it on that stream over
+twice on a side stream on clones of the arguments, the second time under
+`torch.cuda.set_sync_debug_mode("error")` (a host sync in `fn` raises there,
+naming the op), captures it on that stream over
 static copies of them, and returns a program that copies new arguments into
 those buffers, replays the graph and returns the static outputs (which the
 next replay overwrites). Programs are kept in the process by key: a second
@@ -223,10 +225,18 @@ def _capture(fn: Callable, example_args: tuple, device: torch.device) -> Callabl
     stream = torch.cuda.Stream(device)
     stream.wait_stream(torch.cuda.current_stream(device))
     graph = torch.cuda.CUDAGraph()
+    sync_mode = torch.cuda.get_sync_debug_mode()
     try:
         with torch.cuda.stream(stream):
-            fn(*(a if isinstance(a, torch.Generator) else tree_map(torch.clone, a)
-                 for a in static))
+            # the first call may build what the body's ops build once and keep
+            # (device constants copied from the host, the kernel library); in
+            # the second, a host sync (a value read back, a data-dependent
+            # branch) raises, naming the op, rather than breaking the capture
+            for check in (False, True):
+                torch.cuda.set_sync_debug_mode("error" if check else sync_mode)
+                fn(*(a if isinstance(a, torch.Generator) else tree_map(torch.clone, a)
+                     for a in static))
+            torch.cuda.set_sync_debug_mode(sync_mode)
         torch.cuda.current_stream(device).wait_stream(stream)
         LAUNCHES.update(counted)
         for _, g in generators:
@@ -235,6 +245,7 @@ def _capture(fn: Callable, example_args: tuple, device: torch.device) -> Callabl
             out = fn(*static)
         captured = {k: n - counted[k] for k, n in LAUNCHES.items() if n != counted[k]}
     finally:
+        torch.cuda.set_sync_debug_mode(sync_mode)
         LAUNCHES.update(counted)
     static_leaves = [None if isinstance(a, torch.Generator) else tree_leaves(a) for a in static]
 

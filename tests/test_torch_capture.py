@@ -5,8 +5,9 @@ into its input buffers and the aux written chunk by chunk into [B, steps]
 buffers must change no bit. Covers ConstrainedSolver.run (f32 and bf16),
 run_grouped, HolonomicSolver.run, a field trained every 10th step (whose
 prev_trajectory is the chunk's input trajectory), the tracked loops, the
-dynamic schedule (not captured), BatchPlanner(aot_prefix=...) and
-run_grid_suite(aot=True). The capture on the card is held by chip_smoke.py
+dynamic schedule (not captured), the experimental orders (Jacobi, merged,
+grouped merged, run_batch's own program) and the keys that keep their
+programs apart, BatchPlanner(aot_prefix=...) and run_grid_suite(aot=True). The capture on the card is held by chip_smoke.py
 phase 14. B=4, 20 steps, the car scene, hidden 16.
 """
 import numpy as np
@@ -131,15 +132,67 @@ def test_the_dynamic_schedule_stays_eager():
     assert captured.aot_events == []
 
 
-def test_capture_of_the_experimental_orders_is_refused():
-    oracle, *_ = car_world(B, "cpu")
-    for flag in ("jacobi_step", "merged_step", "use_fused_field_grad"):
-        solver = ExperimentalConstrainedSolver(CFG, rectangle_collision, device="cpu",
-                                               **{flag: True})
-        with pytest.raises(NotImplementedError, match="default step order"):
-            solver.with_aot("test")
-    plain = ExperimentalConstrainedSolver(CFG, rectangle_collision, device="cpu")
-    assert plain.with_aot("test").aot_prefix == "test"
+def experimental(flag=None, cfg=CFG, group_size=1, batch=B):
+    oracle, start, goal, bounds = car_world(batch, "cpu")
+    solver = ExperimentalConstrainedSolver(cfg, rectangle_collision, device="cpu",
+                                           **({flag: True} if flag else {}))
+    state = solver.init_state(gen(0), start, goal, bounds, oracle, group_size=group_size)
+    return solver, state, oracle
+
+
+@pytest.mark.parametrize("flag", ["jacobi_step", "merged_step", "use_fused_field_grad"])
+def test_with_aot_admits_each_experimental_order_and_equals_its_eager_run(flag):
+    solver, state, oracle = experimental(flag)
+    want = solver.run(state, oracle, STEPS, gen(1))
+    captured = solver.with_aot("test")
+    assert captured.aot_prefix == "test"
+    assert same(want, captured.run(state, oracle, STEPS, gen(1)))
+    assert captured.aot_events == [{"program": f"chunk-b{B}", "loaded": False, "seconds": 0.0}]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_run_batch_through_its_program_equals_run_batch(dtype):
+    cfg = CFG._replace(onf=CFG.onf._replace(compute_dtype=dtype))
+    solver, state, oracle = experimental(cfg=cfg)
+    before = leaves_copy(state)
+    g_eager, g_captured = gen(1), gen(1)
+    want = solver.run_batch(state, oracle, STEPS, g_eager, problems_per_program=2)
+    captured = solver.with_aot("test")
+    got = captured.run_batch(state, oracle, STEPS, GeneratorNoise(g_captured),
+                             problems_per_program=2)
+    assert same(want, got)
+    assert all(torch.equal(x, y) for x, y in zip(before, tree_leaves(state)))  # input untouched
+    assert torch.equal(g_eager.get_state(), g_captured.get_state())
+    assert captured.aot_events == [{"program": f"batch-b{B}-p2", "loaded": False,
+                                    "seconds": 0.0}]
+
+
+def test_grouped_merged_through_the_program_equals_run_grouped():
+    solver, state, oracle = experimental("merged_step", group_size=2)
+    want = solver.run_grouped(state, oracle, STEPS, 2, gen(1))
+    captured = solver.with_aot("test")
+    assert same(want, captured.run_grouped(state, oracle, STEPS, 2, gen(1)))
+    assert captured.aot_events[0]["program"] == f"chunk-b{B}-g2"
+
+
+def test_the_default_jacobi_merged_and_batch_programs_have_distinct_keys():
+    """One config, one batch of 8 and one prefix: the default, Jacobi and
+    merged chunk programs share a name, so only their keys keep them apart in
+    the process's store; run_batch's P=8 program has its own."""
+    keys = {}
+    for label, flag in (("default", None), ("jacobi", "jacobi_step"),
+                        ("merged", "merged_step"), ("batch", None)):
+        solver, state, oracle = experimental(flag, batch=8)
+        captured = solver.with_aot("test")
+        if label == "batch":
+            captured.run_batch(state, oracle, 10, gen(1), problems_per_program=8)
+        else:
+            captured.run(state, oracle, 10, gen(1))
+        (keys[label],) = captured._aot_keys
+        assert captured._step_order() == ("default" if label == "batch" else label)
+    assert len(set(keys.values())) == 4, keys
+    assert [key.rsplit("-", 1)[0] for key in keys.values()] == ["test-chunk-b8"] * 3 + [
+        "test-batch-b8-p8"]
 
 
 def test_batch_planner_aot_prefix_matches_the_plain_planner():

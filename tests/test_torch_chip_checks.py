@@ -453,6 +453,49 @@ def test_hold_path_kernels_rejects_a_kernel_off_its_plain_version(path_state, wr
         cs.hold_path_kernels("a test", solver, state, oracle, 2)
 
 
+@pytest.fixture(scope="module")
+def batch_path_state():
+    """The bf16 batch path (run_batch, P=2): 4 problems 10 steps in, as
+    (solver, state, oracle)."""
+    from nfopp_tpu_torch.experimental import ExperimentalConstrainedSolver
+    from nfopp_tpu_torch.solver import SolverConfig
+    from nfopp_tpu_torch.tools.scene import car_world
+    from nfopp_tpu_torch.worlds import rectangle_collision
+
+    cfg = SolverConfig(trajectory_length=12, collision_point_count=10,
+                       onf=ONFConfig(hidden=16, compute_dtype="bfloat16"),
+                       init_collision_iteration=0, collision_samples_per_segment=2)
+    oracle, start, goal, bounds = car_world(4, CPU)
+    solver = ExperimentalConstrainedSolver(cfg, rectangle_collision, device="cpu")
+    state = solver.init_state(torch.Generator().manual_seed(0), start, goal, bounds, oracle)
+    state, _ = solver.run_batch(state, oracle, 10, torch.Generator().manual_seed(1),
+                                problems_per_program=2)
+    return solver, state, oracle
+
+
+def test_hold_path_kernels_holds_the_batch_path_s_multi_problem_kernels(batch_path_state):
+    held = cs.hold_path_kernels("a test", *batch_path_state, 2, problems_per_program=2)
+    assert held["shapes"] == {"onf_multi": [4, 10 + 11, 3], "field_grad": [4, 11 + 10 + 10, 3],
+                              "collision": [4, 11 * 2, 3]}
+    assert set(held["max_abs_err"]) == {"onf_multi", "field_grad_multi", "collision_fwd",
+                                        "collision_bwd"}
+
+
+@pytest.mark.parametrize("wrong", ["onf_multi", "field_grad_multi"])
+def test_hold_path_kernels_rejects_a_multi_problem_kernel_off_its_plain_version(
+        batch_path_state, wrong, monkeypatch):
+    if wrong == "onf_multi":
+        monkeypatch.setattr(kernels, "onf_multi",
+                            lambda p, x, c, n: kernels.onf_multi_plain(p, x, c) + 1e-2)
+    else:
+        def field_grad_multi(p, x, truth, c, n):
+            loss, grads = kernels.field_grad_multi_plain(p, x, truth, c)
+            return loss, tree_map(lambda t: t * 1.01, grads)
+        monkeypatch.setattr(kernels, "field_grad_multi", field_grad_multi)
+    with pytest.raises(AssertionError, match=f"a test {wrong}"):
+        cs.hold_path_kernels("a test", *batch_path_state, 2, problems_per_program=2)
+
+
 def test_bf16_other_side_crosses_the_nearest_rounding_boundary():
     a = torch.tensor([21.18750019744, -21.18750019744, 1.0, 3.046167612, -0.0142822265625 * 1.0001],
                      dtype=torch.float64)
