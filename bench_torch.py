@@ -14,22 +14,27 @@ blocks (the port's random streams; ROADMAP.md, "Deviations").
 `ExperimentalConstrainedSolver` runs --fused, --jacobi, --merged and
 --multi P (`run_batch`), `ConstrainedSolver` the rest.
 
-Timing (`bench.py:233-382`): init; a warm-up chunk of --timed-steps steps
-from another generator, which captures the chunk program (JAX's
-compile+warmup); then steps // timed-steps calls of `run(s, oracle,
-timed_steps)` (`run_batch` for --multi) and one synchronize, on the host
-clock. By default the solver is a `with_aot` copy, so every call replays one
-captured CUDA graph per 10-step chunk (`utils/aot.py`), as bench.py times one
-compiled program in every mode; --eager times the plain eager `run`, what a
-caller of `solver.run` gets. A capture that fails raises; nothing falls back
-to eager or to the CPU. `launches_per_step` is each kernel's count in the
-timed loop (`kernels.LAUNCHES`, counted through the replays) over its steps.
+Timing (`bench.py:233-382`): init; a warm-up call of --timed-steps steps
+from another generator, which captures the program (JAX's compile+warmup);
+then steps // timed-steps calls of `run(s, oracle, timed_steps)` (`run_batch`
+for --multi) and one synchronize, on the host clock. By default the solver
+is a `with_aot` copy, so every call replays captured CUDA graphs
+(`utils/aot.py`), as bench.py times one compiled program in every mode: one
+graph per 10-step chunk where --timed-steps is a multiple of 10 (the static
+schedule), else one per step (the dynamic schedule, as bench.py's scan of
+`step`; --multi's `run_batch` has no dynamic schedule and refuses such a
+count). --eager times the plain eager `run`, what a caller of `solver.run`
+gets. A capture that fails raises; nothing falls back to eager or to the
+CPU. `launches_per_step` is each kernel's count in the timed loop
+(`kernels.LAUNCHES`, counted through the replays) over its steps.
 
 Quality: `evaluate_path`'s feasible fraction of the final paths. --feas-sweep
 N solves seeds seed+1 ... seed+N with the same programs. p50_batched_step_ms
-is 20 one-step calls and one synchronize (`bench.py:420-437`); one step is
-off the 10-step chunk, so it runs the dynamic schedule, which is eager
-("p50_step_path"). --anytime solves the same states under the reference's
+is 20 one-step calls and one synchronize (`bench.py:420-437`, a compiled
+`run(s, o, 1)`): one step is off the 10-step chunk, so each call replays the
+captured one-step program of the dynamic schedule, captured by a call before
+the timed window ("p50_step_path": "captured"; "eager" under --eager or on
+the CPU). --anytime solves the same states under the reference's
 early stop (`run_with_tracking`, `bench.py:440-510`), warmed on other states;
 where no problem is feasible its lengths are null (JSON has no NaN), and its
 `vs_baseline` divides by the reference's solves/s at the mean iterations run
@@ -87,7 +92,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--steps", type=int, default=1000, help="iterations per solve")
     parser.add_argument("--timed-steps", type=int, default=200,
                         help="steps in each timed call (a multiple of the reparametrization "
-                             "freq 10 when captured)")
+                             "freq 10 runs the chunk program, any other the one-step program)")
     parser.add_argument("--f32", action="store_true",
                         help="full float32; default is bf16 products with f32 accumulation")
     parser.add_argument("--fused", action="store_true",
@@ -252,11 +257,11 @@ def main(argv=None) -> int:
         enable_compile_cache(device)  # the kernel library, before any timed work
         torch.backends.cuda.matmul.allow_tf32 = False
     config = solver_config(args.f32, args.field_freq)
-    if not args.eager and args.timed_steps % config.reparametrize_trajectory_freq:
+    if args.multi and args.timed_steps % config.reparametrize_trajectory_freq:
         raise SystemExit(
-            f"--timed-steps {args.timed_steps} is not a multiple of the reparametrization "
-            f"freq {config.reparametrize_trajectory_freq}: such a call runs the dynamic "
-            "schedule, which is not captured; pick a multiple or pass --eager"
+            f"--multi: --timed-steps {args.timed_steps} is not a multiple of the "
+            f"reparametrization freq {config.reparametrize_trajectory_freq}; run_batch has "
+            "the static schedule only, as bench.py's --multi"
         )
     solver = make_solver(config, args, device)
     if not args.eager:
@@ -339,15 +344,18 @@ def main(argv=None) -> int:
         log(f"feasible fraction over {len(fr)} seed bases: "
             f"min {fr.min():.4f} mean {fr.mean():.4f} max {fr.max():.4f}")
 
-    # one step is off the 10-step chunk: the dynamic schedule, eager
-    out, _ = solver.run(s, oracle, 1, g)  # warm dispatch
+    # one step is off the 10-step chunk: the dynamic schedule's one-step
+    # program (captured by this first call), or the eager step
+    out, _ = solver.run(s, oracle, 1, g)
     sync()
     t1 = time.perf_counter()
     for _ in range(20):
         out, _ = solver.run(out, oracle, 1, g)
     sync()
     p50_ms = (time.perf_counter() - t1) / 20 * 1e3
-    log(f"p50 batched step latency: {p50_ms:.2f} ms (eager)")
+    p50_path = "captured" if captured else "eager"
+    log(f"p50 batched step latency: {p50_ms:.2f} ms ({p50_path}); programs "
+        f"{getattr(solver, 'aot_events', [])}")
 
     anytime = None
     if args.anytime:
@@ -385,7 +393,7 @@ def main(argv=None) -> int:
         "us_per_step_per_problem": per_step_us,
         "feasible_fraction": feasible_frac,
         "p50_batched_step_ms": p50_ms,
-        "p50_step_path": "eager",
+        "p50_step_path": p50_path,
         "captured": captured,
         "capture_s": capture_s,
         "launches_per_step": launches_per_step,

@@ -46,8 +46,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
      printed, not held); the constrained planner (DEFAULT_PARAMETERS: no angle
      features on SE(2) poses) and the holonomic planner, one problem each,
      through init, 1000 steps, moved goal and start, new bounds and 50 more
-     steps, with their endpoints pinned; and a checkpoint of phase 7's tracked
-     solve, restored and resumed bit for bit;
+     steps, with their endpoints pinned (the planner pretrains and steps
+     through its captured programs; its first step call captures the chunk
+     program); and a checkpoint of phase 7's tracked solve, restored and
+     resumed bit for bit;
  10. benchmark suite: run_grid_suite on the corridor suite as its users run
      it (256 worlds of scripts/run_benchmark_torch.py, geodesic >= 120,
      bench_parameters, f32, 8 restarts per failure, 128 shortcut trials,
@@ -61,8 +63,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
      scripts' functions), each f32 kernel (bf16 in f) launched once per step
      run: (a) the dynamic demo's host loop, 40 ticks of WorldState ->
      ReplanningService with a 0.08 s budget, clear of the true disc, each
-     raw path from the pose it was fed to the goal; (b) fleet_replan_session
-     in the users' serving shape (256 robots, 2 sub-fleets of 128 with one
+     raw path from the pose it was fed to the goal (its planner captures
+     its pretraining at set_goal and its chunk program in the first cycle);
+     (b) fleet_replan_session in the users' serving shape (256 robots, 2
+     sub-fleets of 128 with one
      shared field each, 20-step bursts, 2 goals x 25 cycles), replicas
      bit-identical, goals exact, final plans >= 0.98 feasible; (c) 16 robots
      in 2 sub-fleets against two independent sessions at
@@ -156,6 +160,31 @@ Phases, each of which raises on failure (the script then exits non-zero):
      next-step inputs; (c) scripts/profile_step_torch.py's five ablation
      variants with --aot, B=256 x 50 steps. The launches of (a)'s timed
      loops and of (b)'s captured runs join the kernels' counts.
+ 17. the dynamic schedule and pretraining as captured programs
+     (`solver.with_aot`: one program per step, one per pretraining
+     iteration): (a) the car scene in f32 and bf16 and the holonomic
+     two-walls scene, B=256, entering off the chunk (5 steps, then 100
+     timed) and 7 steps from a chunk's start, the Jacobi and merged orders at
+     B=64 (5, then 20), each captured run bit-identical to its eager run
+     (`same_state`), each of its kernels once per step; then
+     tools/profile_step.py --aot off the chunk (host and busy ms per step);
+     (b) BatchPlanner(aot_prefix=...)'s init at the suite's config (100
+     iterations on 200 points, phase 10's 256 corridor worlds) and the
+     holonomic demo config's init (400 iterations, B=256), each captured
+     twice and bit-identical to the eager init, its generator left where the
+     eager init leaves it; (c) NFOPPlanner (the dynamic demo's parameters on
+     the car scene) through init, step(7), step(13) and step(1000), after
+     each call bit-identical to the eager solver driven alike; then phase
+     11a's host loop again, its planner's programs from the store: cycle p50
+     and p99 against the 0.08 s budget, steps per cycle; then a stored
+     program replayed for a second solver after the capturing one is gone
+     and its freed blocks hold NaN, bit for bit against eager; (d) kernels
+     1, 2, 3a and 3b on the inputs the next step of (a)'s captured states
+     gives them (car f32 and bf16, holonomic), and kernel 2 at
+     pretraining's shapes (M=100 and 200 on the car fields, the holonomic
+     2-wide points), each held against its plain version and timed beside
+     its bound. The launches of (a)-(c)'s captured runs and inits join the
+     kernels' counts.
 After each solve of phases 7-10 (the tracked and grouped paths, the holonomic
 path, both planners and the suite), every kernel of that path is held against
 its plain version on the inputs the path's next step gives it, at the path's
@@ -171,6 +200,7 @@ multi-problem kernels.
 from __future__ import annotations
 
 import argparse
+import gc
 import itertools
 import json
 from functools import partial
@@ -778,29 +808,34 @@ class KernelInputs:
         self.cot = self.weights.expand(batch, 2).contiguous()
 
 
-def add_bounds(results: dict, inputs: KernelInputs, peaks) -> None:
-    """bound_ms of each kernel in `results`: the larger of operations over the
-    peak of their type (f32 CUDA cores, or bf16 tensor cores for the bf16
-    kernels) and bytes over the memory rate, for this run's shapes."""
+def kernel_bound(name: str, onf, batch: int, n_params: int, m: int, dim: int, peaks) -> dict:
+    """The least time kernel `name` could take on B problems of a field of
+    `n_params` parameters each and M points of width `dim`: the larger of its
+    operations over the peak of their type (f32 CUDA cores, or bf16 tensor
+    cores for the bf16 kernels) and the bytes it must move over the memory
+    rate. Returns bound_ms, bound_by and gflop."""
     _, f32_peak, bf16_peak, bytes_rate = peaks
-    macs = field_macs(inputs.onf)
-    batch = inputs.batch
-    param_bytes = 4 * batch * inputs.n_params
+    param_bytes = 4 * batch * n_params
+    points_bytes = 4 * batch * m * dim
+    moved = {
+        "onf_forward": param_bytes + points_bytes + 4 * batch * m,
+        "field_grad": 2 * param_bytes + points_bytes + 4 * batch * m + 4 * batch,
+        "collision_fwd": param_bytes + points_bytes + 4 * batch * m + 8 * batch,
+        "collision_bwd": param_bytes + 2 * points_bytes + 8 * batch * m + 8 * batch,
+    }[COUNTERPART.get(name, name)]
+    flops = 2.0 * field_macs(onf)[name] * batch * m
+    peak = f32_peak if name in MAIN_PATH else bf16_peak
+    t_ops, t_bytes = flops / peak * 1e3, moved / bytes_rate * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "gflop": flops / 1e9}
+
+
+def add_bounds(results: dict, inputs: KernelInputs, peaks) -> None:
+    """bound_ms of each kernel in `results` (`kernel_bound`) for this run's
+    shapes."""
     for name, res in results.items():
         m = inputs.shapes[name]
-        points_bytes = 4 * batch * m * 3
-        moved = {
-            "onf_forward": param_bytes + points_bytes + 4 * batch * m,
-            "field_grad": 2 * param_bytes + points_bytes + 4 * batch * m + 4 * batch,
-            "collision_fwd": param_bytes + points_bytes + 4 * batch * m + 8 * batch,
-            "collision_bwd": param_bytes + 2 * points_bytes + 8 * batch * m + 8 * batch,
-        }[COUNTERPART.get(name, name)]
-        flops = 2.0 * macs[name] * batch * m
-        peak = f32_peak if name in MAIN_PATH else bf16_peak
-        t_ops, t_bytes = flops / peak * 1e3, moved / bytes_rate * 1e3
-        res["bound_ms"] = max(t_ops, t_bytes)
-        res["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
-        res["gflop"] = flops / 1e9
+        res.update(kernel_bound(name, inputs.onf, inputs.batch, inputs.n_params, m, 3, peaks))
         log(f"kernel {name}: M={m} err={res['max_abs_err']:.3g} ms={res['ms']:.4f} "
             f"plain_ms={res['plain_ms']:.4f} bound_ms={res['bound_ms']:.4f} ({res['bound_by']})")
 
@@ -1363,8 +1398,22 @@ def per_problem_us(seconds: float, steps: float, batch: int) -> float:
     return seconds / steps / batch * 1e6
 
 
+def time_kernel(name: str, fn, plain, onf, params, m: int, dim: int, peaks) -> dict:
+    """ms per call of a kernel's wrapper `fn` and of its plain version
+    (CUDA events over 20 calls), beside the kernel's bound at this shape
+    (`kernel_bound`: B problems of `params`, M points of width `dim`)."""
+    from nfopp_tpu_torch.tools.scene import time_ms
+    from nfopp_tpu_torch.utils.tree import tree_leaves
+
+    leaves = tree_leaves(params)
+    batch = leaves[0].shape[0]
+    n_params = sum(p.numel() for p in leaves) // batch
+    return {"m": m, "dim": dim, "ms": time_ms(fn), "plain_ms": time_ms(plain),
+            **kernel_bound(name, onf, batch, n_params, m, dim, peaks)}
+
+
 def hold_path_kernels(what: str, solver, state, oracle, seed: int,
-                      problems_per_program: int | None = None) -> dict:
+                      problems_per_program: int | None = None, peaks=None) -> dict:
     """Each kernel of `solver`'s path against its plain version on the inputs
     one more step from `state` would give it (noise from a generator seeded
     with `seed`): the field's parameters, the candidates it scores [B, K+N-1,
@@ -1376,7 +1425,9 @@ def hold_path_kernels(what: str, solver, state, oracle, seed: int,
     passes are the multi-problem kernels' (onf_multi, field_grad_multi, their
     bf16 casts "multi"). Phase 3's tolerances, its ReLU-kink recomputation
     and, in bf16, the path's casts and the tie allowance. Returns the largest
-    difference of each kernel."""
+    difference of each kernel; with `peaks` (the main paths) also each
+    kernel's and its plain version's time on these inputs beside its bound
+    (`time_kernel`)."""
     import torch
 
     from nfopp_tpu_torch import kernels
@@ -1434,8 +1485,36 @@ def hold_path_kernels(what: str, solver, state, oracle, seed: int,
         kinks=(params, x, onf, collision_f64(mult, weights, onf, beta, casts)), bf16=bf16)
     shapes = {name: candidates.shape, "field_grad": points.shape, "collision": x.shape}
     log(f"{what}: kernels held on the path's own inputs {dict(shapes)}: {errors}")
-    return {"max_abs_err": errors,
+    held = {"max_abs_err": errors,
             "shapes": {name: list(shape) for name, shape in shapes.items()}}
+    if peaks is not None and problems_per_program is None:
+        from nfopp_tpu_torch.kernels.collision_terms import collision_bwd, collision_fwd
+
+        suffix = "_bf16" if bf16 else ""
+        dim = x.shape[-1]
+        truth = solver.oracle_fn(oracle, points)
+        cotangents = weights.expand(batch, 2).contiguous()
+        held["timings"] = {
+            "onf_forward" + suffix: time_kernel(
+                "onf_forward" + suffix, lambda: kernels.onf_forward(params, candidates, onf),
+                lambda: kernels.onf_forward_plain(params, candidates, onf), onf, params,
+                candidates.shape[1], dim, peaks),
+            "field_grad" + suffix: time_kernel(
+                "field_grad" + suffix, lambda: kernels.field_grad(params, points, truth, onf),
+                lambda: kernels.field_grad_plain(params, points, truth, onf), onf, params,
+                points.shape[1], dim, peaks),
+            "collision_fwd" + suffix: time_kernel(
+                "collision_fwd" + suffix, lambda: collision_fwd(params, x, mult, onf, beta),
+                lambda: kernels.collision_terms_plain(params, x, mult, onf, beta), onf, params,
+                x.shape[1], dim, peaks),
+            "collision_bwd" + suffix: time_kernel(
+                "collision_bwd" + suffix,
+                lambda: collision_bwd(params, x, mult, cotangents, onf, beta),
+                lambda: collision_grads(kernels.collision_terms_plain, params, x, mult, onf, beta,
+                                        weights), onf, params, x.shape[1], dim, peaks),
+        }
+        log(f"{what}: kernel times on the path's own inputs: {held['timings']}")
+    return held
 
 
 def hold_field_grad(what: str, params, points, truth, onf,
@@ -1962,7 +2041,10 @@ def host_service(device, seed: int) -> tuple[dict, dict]:
     with a PathPostprocessor. Holds the executed poses clear of the true
     disc, finite paths, each raw planner path starting at the pose it was
     fed and ending at the goal, and each f32 kernel launched once per step
-    run (the field-gradient kernel also once per pretraining iteration)."""
+    run (the field-gradient kernel also once per pretraining iteration). The
+    planner pretrains and steps through captured programs (NFOPPlanner's
+    `with_aot("planner")`), listed under "programs": captured in the first
+    run (phase 11a), taken from the process's store in a second (17c)."""
     import numpy as np
 
     from nfopp_tpu_torch import kernels
@@ -1988,7 +2070,8 @@ def host_service(device, seed: int) -> tuple[dict, dict]:
             "steps_per_cycle": {"mean": float(steps_per_cycle.mean()),
                                 "min": int(steps_per_cycle.min()),
                                 "max": int(steps_per_cycle.max())},
-            "launches": {name: launches[name] for name in MAIN_PATH}}, launches
+            "launches": {name: launches[name] for name in MAIN_PATH},
+            "programs": traces["planner"].aot_events}, launches
 
 
 def fleet_session(device, seed: int) -> tuple[dict, dict]:
@@ -2514,7 +2597,9 @@ def adapter_analysis(device, scenario, nfopp_path, gpmp2_path, nfopp_log, gpmp2_
 def demo(device, seed: int) -> tuple[dict, dict]:
     """Phase 12d: run_planner_torch.py's functions, one car-scene problem for
     DEMO_STEPS steps in f32, no frames: each f32 kernel once per step, a
-    finite final path with pinned endpoints; its feasibility is printed."""
+    finite final path with pinned endpoints; its feasibility is printed. The
+    script's solver is a with_aot copy: its time includes the capture of its
+    chunk program (listed under "programs")."""
     import numpy as np
     import torch
 
@@ -2539,7 +2624,8 @@ def demo(device, seed: int) -> tuple[dict, dict]:
     return {"steps": DEMO_STEPS, "seconds": elapsed, "ms_per_step": elapsed / DEMO_STEPS * 1e3,
             "field_loss": losses[-1][1], "trajectory_loss": losses[-1][2],
             "length": length, "collision_free": not collides,
-            "launches": {name: launches[name] for name in MAIN_PATH}}, launches
+            "launches": {name: launches[name] for name in MAIN_PATH},
+            "programs": solver.aot_events}, launches
 
 
 # phase 13, the merged field+trajectory step and the Jacobi order
@@ -3101,8 +3187,9 @@ def bench_modes(seed: int, card: str) -> tuple[list, dict]:
     """Phase 16a: bench_torch.py as a subprocess in each of BENCH_MODES, one
     after another. Each prints one JSON line, at least 0.98 feasible, the
     card's line under `device`, each of the mode's kernels launched once per
-    timed step and no other kernel, captured unless --eager; the default
-    mode's seed sweep and anytime solve are there, its anytime file written.
+    timed step and no other kernel, captured (its one-step p50 too) unless
+    --eager; the default mode's seed sweep and anytime solve are there, its
+    anytime file written.
     Returns the (line, JSON) pairs and each kernel's launches in the timed
     loops (launches per step x steps)."""
     import subprocess
@@ -3130,9 +3217,11 @@ def bench_modes(seed: int, card: str) -> tuple[list, dict]:
             if result["feasible_fraction"] < BENCH_FLOOR:
                 raise AssertionError(f"{what}: feasible fraction {result['feasible_fraction']} "
                                      f"below the {BENCH_FLOOR} floor")
-            if result["device"] != card or result["captured"] != captured:
+            path_of_p50 = "captured" if captured else "eager"  # the one-step program
+            if (result["device"] != card or result["captured"] != captured
+                    or result["p50_step_path"] != path_of_p50):
                 raise AssertionError(f"{what}: device {result['device']!r}, captured "
-                                     f"{result['captured']}")
+                                     f"{result['captured']}, p50 {result['p50_step_path']}")
             for name, per_step in result["launches_per_step"].items():
                 if per_step != (1.0 if name in path else 0.0):
                     raise AssertionError(f"{what}: kernel {name} launched {per_step} times per "
@@ -3218,6 +3307,363 @@ def capture_agreement(device, seed: int) -> tuple[dict, dict]:
         log(f"phase 16b {name}: eager {seconds['eager']:.3f}s, captured "
             f"{seconds['captured_again']:.3f}s per {CAPTURE_STEPS} steps, bit-identical")
     return metrics, launches
+
+
+# phase 17, the dynamic schedule and pretraining as captured programs: a
+# `run` entered off a chunk's start (DYNAMIC_ENTRY steps, then DYNAMIC_STEPS)
+# and one of DYNAMIC_ALIGNED steps from a chunk's start replay the one-step
+# program; the Jacobi and merged orders at ORDER_BATCH x ORDER_STEPS; the
+# planner's step counts (PLANNER_STEPS); kernel 2 at pretraining's M on the
+# car config (PRETRAIN_POINTS)
+DYNAMIC_ENTRY, DYNAMIC_STEPS, DYNAMIC_ALIGNED = 5, 100, 7
+ORDER_BATCH, ORDER_STEPS = 64, 20
+PLANNER_STEPS = (7, 13, 1000)
+PRETRAIN_POINTS = (100, 200)
+DYNAMIC_PROFILE = {"warmup": 25, "steps": 20}  # 25 warm-up steps leave the state off the chunk
+
+
+def dynamic_pair(what: str, solver, state, oracle, seed: int, path: tuple, prefix: str,
+                 steps: int = DYNAMIC_STEPS) -> tuple[dict, dict, object]:
+    """`solver` eagerly and through `solver.with_aot(prefix)`, each from
+    `state` with a generator seeded `seed`: DYNAMIC_ENTRY steps (the
+    captured copy's first call captures its one-step program), then
+    `steps` steps entered off the chunk, timed, each kernel of `path`
+    launched once per step; then DYNAMIC_ALIGNED steps from `state` (a
+    chunk's start) with another generator. Every leaf of both final states
+    bit-identical to the eager run's. Returns the metrics, the captured
+    off-chunk run's launches and its final state."""
+    import torch
+
+    from nfopp_tpu_torch import kernels
+
+    captured_solver = solver.with_aot(prefix)
+    finals, aligned, seconds = {}, {}, {}
+    for mode, slv in (("eager", solver), ("captured", captured_solver)):
+        g = torch.Generator(device=solver.device).manual_seed(seed)
+        entered, _ = slv.run(state, oracle, DYNAMIC_ENTRY, g)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        finals[mode], _ = slv.run(entered, oracle, steps, g)
+        torch.cuda.synchronize()
+        seconds[mode] = time.perf_counter() - t0
+        check_launches(dict(kernels.LAUNCHES), path, steps, f"phase 17 {what} {mode}")
+        if mode == "captured":
+            launches = dict(kernels.LAUNCHES)
+        g = torch.Generator(device=solver.device).manual_seed(seed + 1)
+        aligned[mode], _ = slv.run(state, oracle, DYNAMIC_ALIGNED, g)
+    held = same_state(f"phase 17 {what} off the chunk", finals["eager"], finals["captured"])
+    same_state(f"phase 17 {what} {DYNAMIC_ALIGNED} steps", aligned["eager"], aligned["captured"])
+    batch = state.start.shape[0]
+    log(f"phase 17 {what}: {steps} steps off the chunk, eager {seconds['eager']:.3f}s, "
+        f"captured {seconds['captured']:.3f}s, bit-identical")
+    return {
+        "batch": batch, "compute_dtype": solver.config.onf.compute_dtype,
+        "entered_at": DYNAMIC_ENTRY, "steps": steps, "aligned_steps": DYNAMIC_ALIGNED,
+        "eager_s": seconds["eager"], "captured_s": seconds["captured"],
+        "captured_host_ms_per_step": seconds["captured"] / steps * 1e3,
+        "captured_us_per_step_per_problem": per_problem_us(seconds["captured"], steps,
+                                                           batch),
+        "programs": captured_solver.aot_events, "launches_per_step": {
+            k: n / steps for k, n in launches.items() if n},
+        "against_eager": held,
+    }, launches, finals["captured"]
+
+
+def dynamic_schedule(device, seed: int) -> tuple[dict, dict, dict]:
+    """Phase 17a: the dynamic schedule captured (`dynamic_pair`): the car
+    scene in f32 and bf16 and the holonomic two-walls scene
+    (make_onf_planner's config, 400 pretraining iterations in the eager
+    init) at BATCH; the Jacobi (f32) and merged (f32) orders at ORDER_BATCH
+    x ORDER_STEPS; then tools/profile_step.py --aot on a run off the chunk
+    (f32 and bf16): host and busy ms per step. Returns the metrics, the
+    captured runs' launches and the captured states off the chunk (for 17d)."""
+    import tempfile
+    from types import SimpleNamespace
+
+    import torch
+
+    from nfopp_tpu_torch.experimental import ExperimentalConstrainedSolver
+    from nfopp_tpu_torch.solver import ConstrainedSolver, PlannerFactory, run_planner_config
+    from nfopp_tpu_torch.tools import profile_step
+    from nfopp_tpu_torch.tools.scene import car_world
+    from nfopp_tpu_torch.worlds import circle_collision, rectangle_collision
+
+    metrics, launches, states = {}, {}, {}
+
+    def add(counted):
+        for k, n in counted.items():
+            launches[k] = launches.get(k, 0) + n
+
+    car, start, goal, bounds = car_world(BATCH, device)
+    for dtype, path in (("f32", MAIN_PATH), ("bf16", MAIN_PATH_BF16)):
+        cfg = run_planner_config() if dtype == "f32" else bf16_config(run_planner_config())
+        solver = ConstrainedSolver(cfg, rectangle_collision, device=device)
+        state = solver.init_state(torch.Generator(device=device).manual_seed(seed), start, goal,
+                                  bounds, car)
+        metrics[f"car_{dtype}"], counted, final = dynamic_pair(
+            f"car {dtype}", solver, state, car, seed + 1, path, f"dynamic-{dtype}")
+        states[f"car_{dtype}"] = (solver, final, car)
+        add(counted)
+
+    walls, start2, goal2, bounds2 = two_walls_world(BATCH, device)
+    solver = PlannerFactory.make_onf_planner(circle_collision, walls, device=device).solver
+    state = solver.init_state(torch.Generator(device=device).manual_seed(seed), start2, goal2,
+                              bounds2, walls)
+    metrics["holonomic_f32"], counted, final = dynamic_pair(
+        "holonomic f32", solver, state, walls, seed + 1, MAIN_PATH, "dynamic-holonomic")
+    states["holonomic_f32"] = (solver, final, walls)
+    add(counted)
+
+    car, start, goal, bounds = car_world(ORDER_BATCH, device)
+    for order, path in (("jacobi", MAIN_PATH), ("merged", ())):
+        solver = ExperimentalConstrainedSolver(run_planner_config(), rectangle_collision,
+                                               device=device, **{f"{order}_step": True})
+        state = solver.init_state(torch.Generator(device=device).manual_seed(seed), start, goal,
+                                  bounds, car)
+        metrics[f"{order}_f32"], counted, _ = dynamic_pair(
+            f"{order} f32", solver, state, car, seed + 1, path, f"dynamic-{order}", ORDER_STEPS)
+        add(counted)
+
+    keys = ("host_ms_per_step", "device_busy_ms_per_step", "idle_share_vs_host_step",
+            "kernels_per_step", "launch_calls_per_step", "graph_replays_per_step",
+            "host_launch_ms_per_step", "host_launch_ms_per_step_by_call",
+            "port_kernel_launches_per_step", "aot_events")
+    with tempfile.TemporaryDirectory() as tmp:
+        for bf16 in (False, True):
+            result = profile_step.profile(SimpleNamespace(
+                batch=BATCH, seed=seed, bf16=bf16, order="default", aot=True,
+                trace=pathlib.Path(tmp) / "trace.json", **DYNAMIC_PROFILE))
+            metrics[f"profile_{'bf16' if bf16 else 'f32'}_off_chunk"] = {
+                k: result[k] for k in keys}
+    return metrics, launches, states
+
+
+def init_pair(what: str, device, seed: int, eager_init, captured_init, iterations: int,
+              path: tuple, events: list) -> tuple[dict, dict]:
+    """An init with pretraining eagerly (`eager_init(generator)`) and through
+    its captured program twice (`captured_init(generator)`: the first call
+    captures it, the second replays the stored program), each from a
+    generator seeded `seed`: every leaf bit-identical to the eager init's,
+    each generator ending where the eager init leaves its own, and the
+    kernels of `path` launched `iterations` times by each init. Returns the
+    metrics and the captured inits' launches."""
+    import torch
+
+    from nfopp_tpu_torch import kernels
+
+    seconds, states, generators, launches = {}, {}, {}, {}
+    for mode, init in (("eager", eager_init), ("captured", captured_init),
+                       ("captured_again", captured_init)):
+        generators[mode] = torch.Generator(device=device).manual_seed(seed)
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states[mode] = init(generators[mode])
+        torch.cuda.synchronize()
+        seconds[mode] = time.perf_counter() - t0
+        check_launches(dict(kernels.LAUNCHES), path, iterations, f"phase 17b {what} {mode}")
+        if mode != "eager":
+            for k, n in kernels.LAUNCHES.items():
+                launches[k] = launches.get(k, 0) + n
+    for mode in ("captured", "captured_again"):
+        held = same_state(f"phase 17b {what} ({mode})", states["eager"], states[mode])
+        if not torch.equal(generators[mode].get_state(), generators["eager"].get_state()):
+            raise AssertionError(f"phase 17b {what}: the {mode} init leaves its generator "
+                                 "elsewhere than the eager init")
+    log(f"phase 17b {what}: eager {seconds['eager']:.3f}s, captured {seconds['captured']:.3f}s "
+        f"(with its capture), again {seconds['captured_again']:.3f}s, bit-identical")
+    return {"iterations": iterations, "eager_s": seconds["eager"],
+            "captured_s_with_capture": seconds["captured"],
+            "captured_s": seconds["captured_again"], "programs": events,
+            "against_eager": {**held, "generator_equal": True}}, launches
+
+
+def pretraining(device, seed: int, scenarios) -> tuple[dict, dict]:
+    """Phase 17b: pretraining as its captured program (`init_pair`):
+    BatchPlanner(aot_prefix=...)'s init_batch at the suite's config
+    (bench_parameters: 100 iterations on 200 points) on phase 10's 256
+    corridor worlds, and HolonomicSolver.init_state with make_onf_planner's
+    demo config (400 iterations) on the two-walls scene, B=BATCH, each
+    against its eager init. Returns the metrics and the captured inits'
+    launches."""
+    import numpy as np
+    import torch
+
+    from nfopp_tpu_torch.bench.runner import _stack_oracles
+    from nfopp_tpu_torch.parallel import BatchPlanner
+    from nfopp_tpu_torch.solver import ConstrainedSolver, PlannerFactory, config_from_parameters
+    from nfopp_tpu_torch.worlds import circle_collision, grid_collision
+
+    config = config_from_parameters(load_script("run_benchmark_torch").bench_parameters())
+    solver = ConstrainedSolver(config, grid_collision, device=device)
+    oracles = _stack_oracles([s.oracle(SUITE_SOLVE["footprint_radius"], device)
+                              for s in scenarios])
+    ends = [torch.tensor(np.stack([np.asarray(getattr(s, name), np.float32) for s in scenarios]),
+                         device=device) for name in ("start", "goal", "bounds")]
+    plain, captured = BatchPlanner(solver), BatchPlanner(solver, aot_prefix="pretrain")
+    metrics, launches = {}, {}
+    metrics["suite"], counted = init_pair(
+        f"suite init (B={len(scenarios)}, M={config.init_collision_points})", device, seed,
+        lambda g: plain.init_batch(g, *ends, oracles),
+        lambda g: captured.init_batch(g, *ends, oracles),
+        config.init_collision_iteration, ("field_grad",), captured.aot_events)
+    metrics["suite"].update(batch=len(scenarios), points=config.init_collision_points)
+    launches.update(counted)
+
+    walls, start, goal, bounds = two_walls_world(BATCH, device)
+    solver = PlannerFactory.make_onf_planner(circle_collision, walls, device=device).solver
+    captured_solver = solver.with_aot("pretrain-holonomic")
+    metrics["holonomic"], counted = init_pair(
+        f"holonomic init (B={BATCH}, M={solver.config.init_collision_points})", device, seed,
+        lambda g: solver.init_state(g, start, goal, bounds, walls),
+        lambda g: captured_solver.init_state(g, start, goal, bounds, walls),
+        solver.config.init_collision_iteration, ("field_grad",), captured_solver.aot_events)
+    metrics["holonomic"].update(batch=BATCH, points=solver.config.init_collision_points)
+    for k, n in counted.items():
+        launches[k] = launches.get(k, 0) + n
+    return metrics, launches
+
+
+def planner_capture(device, seed: int) -> tuple[dict, dict]:
+    """Phase 17c (i): NFOPPlanner on the car scene with the dynamic demo's
+    parameters (DEFAULT_PARAMETERS, 100 pretraining iterations), one
+    problem: init, then step(n) for n in PLANNER_STEPS (7 and 13 off the
+    chunk: the one-step program; 1000 from step 20: the chunk program),
+    against the eager solver driven as the planner drives it (one generator
+    seeded alike, init then `run` with its noise): after each call every leaf
+    of the state and the aux bit-identical; each f32 kernel launched by the
+    planner once per step (kernel 2 also once per pretraining iteration).
+    Returns the metrics and the planner's launches."""
+    import torch
+
+    from nfopp_tpu_torch import kernels
+    from nfopp_tpu_torch.ops.sampling import GeneratorNoise
+    from nfopp_tpu_torch.solver import PlannerFactory
+    from nfopp_tpu_torch.tools.scene import car_world
+    from nfopp_tpu_torch.worlds import rectangle_collision
+
+    demo = load_script("dynamic_replan_demo_torch")
+    car, start, goal, bounds = car_world(1, device)
+    planner = PlannerFactory.make_constrained_onf_planner(
+        rectangle_collision, car, demo.demo_parameters(), seed=seed, device=device)
+    solver = planner.solver
+    g = torch.Generator(device=device).manual_seed(seed)
+    calls = [("init", lambda: planner.init(start[0], goal[0], bounds[0]),
+              lambda: solver.init_state(g, start, goal, bounds, car))]
+    eager = {}
+    for n in PLANNER_STEPS:
+        calls.append((f"step({n})", lambda n=n: planner.step(n),
+                      lambda n=n: solver.run(eager["state"], car, n, GeneratorNoise(g))))
+    seconds, eager_seconds, launches = {}, {}, {}
+    for name, call, twin in calls:
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        aux = call()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        for k, n in kernels.LAUNCHES.items():
+            launches[k] = launches.get(k, 0) + n
+        t0 = time.perf_counter()
+        out = twin()
+        torch.cuda.synchronize()
+        eager_seconds[name] = time.perf_counter() - t0
+        if name == "init":
+            eager["state"] = out
+            same_state("phase 17c planner init", out, planner.state)
+        else:
+            eager["state"] = out[0]
+            same_state(f"phase 17c planner {name}", out, (planner.state, aux))
+    pretraining_iterations = solver.config.init_collision_iteration
+    check_launches(launches, MAIN_PATH, sum(PLANNER_STEPS), "phase 17c the planner",
+                   {"field_grad": pretraining_iterations})
+    log(f"phase 17c planner: captured {seconds}, eager {eager_seconds}, bit-identical")
+    return {"steps": list(PLANNER_STEPS), "pretraining_iterations": pretraining_iterations,
+            "captured_s": seconds, "eager_s": eager_seconds, "programs": planner.aot_events,
+            "against_eager": {"bit_identical": True, "calls": len(calls)}}, launches
+
+
+def stored_program_check(device, seed: int) -> dict:
+    """Phase 17c (iii): a program taken from the store for a second solver
+    of its key after the capturing solver is gone: the graph reads the
+    capturing solver's constants (its inverse Hessian), which the program
+    keeps alive (`utils/aot.py`). The first solver captures the car scene's
+    chunk program (B=4, f32) and is dropped, its freed blocks are taken by
+    tensors of NaN, and the second solver's replayed run must equal its eager
+    run bit for bit."""
+    import torch
+
+    from nfopp_tpu_torch.solver import ConstrainedSolver, run_planner_config
+    from nfopp_tpu_torch.tools.scene import car_world
+    from nfopp_tpu_torch.worlds import rectangle_collision
+
+    oracle, start, goal, bounds = car_world(4, device)
+
+    def run(solver):
+        g = torch.Generator(device=device).manual_seed(seed)
+        state = solver.init_state(g, start, goal, bounds, oracle)
+        return solver.run(state, oracle, 10, g)
+
+    first = ConstrainedSolver(run_planner_config(), rectangle_collision,
+                              device=device).with_aot("stored")
+    run(first)
+    del first
+    gc.collect()
+    n = run_planner_config().trajectory_length
+    junk = [torch.full((n, n), float("nan"), device=device) for _ in range(4000)]
+    solver = ConstrainedSolver(run_planner_config(), rectangle_collision, device=device)
+    second = solver.with_aot("stored")
+    held = same_state("phase 17c stored program for a second solver", run(solver), run(second))
+    del junk
+    if not second.aot_events[0]["loaded"]:
+        raise AssertionError("phase 17c: the second solver captured its own program")
+    return {**held, "programs": second.aot_events}
+
+
+def pretraining_field_grad(what: str, solver, state, oracle, m: int, seed: int,
+                           peaks) -> dict:
+    """Kernel 2 at a pretraining shape: M uniform points in the state's
+    bounds (2-wide on a holonomic state), labelled by the oracle, on the
+    state's field, held against its plain version (`hold_field_grad`) and
+    timed beside its bound (`time_kernel`)."""
+    import torch
+
+    from nfopp_tpu_torch import kernels
+    from nfopp_tpu_torch.ops.sampling import uniform_box_points
+
+    onf, params = solver.config.onf, state.field_params
+    batch, dim = state.start.shape
+    g = torch.Generator(device=solver.device).manual_seed(seed)
+    u = torch.rand((batch, m, dim), generator=g, device=solver.device)
+    points = uniform_box_points(u, state.bounds, dim == 3)
+    truth = solver.oracle_fn(oracle, points)
+    name = "field_grad" + ("_bf16" if onf.compute_dtype == "bfloat16" else "")
+    return {"max_abs_err": hold_field_grad(f"{what} M={m}", params, points, truth, onf),
+            **time_kernel(name, lambda: kernels.field_grad(params, points, truth, onf),
+                          lambda: kernels.field_grad_plain(params, points, truth, onf), onf,
+                          params, m, dim, peaks)}
+
+
+def dynamic_kernels(seed: int, states: dict, peaks) -> dict:
+    """Phase 17d: kernels 1, 2, 3a and 3b held against their plain versions
+    and timed beside their bounds (`hold_path_kernels` with `peaks`) on the
+    inputs the next step of each of 17a's captured states off the chunk
+    gives them: the car scene in f32 and bf16, the holonomic path's 2-wide
+    points; then kernel 2 at pretraining's shapes on the same fields: M in
+    PRETRAIN_POINTS on the car's, init_collision_points on the holonomic
+    one's (`pretraining_field_grad`)."""
+    out = {}
+    for name, (solver, state, oracle) in states.items():
+        out[name] = hold_path_kernels(f"phase 17d {name}", solver, state, oracle, seed + 17,
+                                      peaks=peaks)
+        sizes = (PRETRAIN_POINTS if name.startswith("car")
+                 else (solver.config.init_collision_points,))
+        out[name]["pretraining_field_grad"] = {
+            f"M={m}": pretraining_field_grad(f"phase 17d {name} pretraining field_grad", solver,
+                                             state, oracle, m, seed + 18, peaks)
+            for m in sizes}
+    return out
 
 
 def main() -> int:
@@ -3443,6 +3889,35 @@ def main() -> int:
         for name, n in counted.items():
             launches[name] += n
     log(f"phase 16: {time.perf_counter() - t0:.1f}s")
+
+    # 17. the dynamic schedule and pretraining as captured programs, the
+    # planner and the host service over them: the captured runs' launches
+    # join the kernels' counts
+    t0 = time.perf_counter()
+    dynamic, dynamic_launches, off_chunk = dynamic_schedule(device, args.seed)
+    print(json.dumps({"dynamic_schedule": {**dynamic, "card": card}}), flush=True)
+    pretrained, pretraining_launches = pretraining(device, args.seed, suite_scenarios)
+    print(json.dumps({"pretraining": {**pretrained, "card": card}}), flush=True)
+    planner_metrics, planner_launches = planner_capture(device, args.seed)
+    print(json.dumps({"planner_capture": {**planner_metrics, "card": card}}), flush=True)
+    # phase 11a's planner is gone: release the cached blocks, so that a stored
+    # program reading its solver's freed constants faults here
+    gc.collect()
+    torch.cuda.empty_cache()
+    host_again, host_again_launches = host_service(device, args.seed)
+    print(json.dumps({"host_service_captured": {
+        **host_again, "first_run": {k: host[k] for k in ("cycle_ms_p50", "cycle_ms_p99")},
+        "card": card}}), flush=True)
+    print(json.dumps({"stored_program": {**stored_program_check(device, args.seed),
+                                         "card": card}}), flush=True)
+    print(json.dumps({"dynamic_kernels": {**dynamic_kernels(args.seed, off_chunk, peaks),
+                                          "card": card}}), flush=True)
+    del off_chunk
+    for counted in (dynamic_launches, pretraining_launches, planner_launches,
+                    host_again_launches):
+        for name, n in counted.items():
+            launches[name] += n
+    log(f"phase 17: {time.perf_counter() - t0:.1f}s")
 
     entries = []
     for name, res in kernel_results.items():

@@ -20,9 +20,12 @@
 
 Every variant captures (`with_aot`): `run`, `run_grouped` and the tracked
 loops replay one chunk program per 10-step chunk in the Jacobi and merged
-orders as in the default one, and `run_batch` replays its own
+orders as in the default one, a `run` off the chunk replays the one-step
+program of its order (`<prefix>-step-b<B>`), and `run_batch` replays its own
 (`<prefix>-batch-b<B>-p<P>`). A program's key holds the step order
-(`_step_order`) and, for `run_batch`, P.
+(`_step_order`) and, for `run_batch`, P. `run_batch` and `run_grouped` keep
+the static schedule only, as JAX's batch and grouped runs have no dynamic
+path.
 """
 from __future__ import annotations
 
@@ -180,5 +183,5 @@ class ExperimentalConstrainedSolver(ConstrainedSolver):
         return self._run_program(
             f"batch-b{states.start.shape[0]}-p{problems_per_program}",
             lambda s, o, n, g: self._batch_chunks(s, o, n, g, problems_per_program),
-            states, oracle_params, num_steps, noise, key_parts=(problems_per_program,),
+            freq, states, oracle_params, num_steps, noise, key_parts=(problems_per_program,),
         )

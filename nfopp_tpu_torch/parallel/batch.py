@@ -19,9 +19,10 @@ on every rank: `init_batch` draws every problem's init from it, and the
 solves draw their noise from the generator they are given, each rank cutting
 its rows from the block drawn for the global batch, so problem i's stream
 depends on the global batch and not on how many ranks share it.
-`aot_prefix` runs the solves as replays of captured chunk programs
-(`solver.with_aot`, `utils/aot.py`), where JAX's loads compiled executables
-from its AOT store.
+`aot_prefix` runs the solves and the inits' pretraining as replays of
+captured programs (`solver.with_aot`, `utils/aot.py`), where JAX's loads
+compiled executables from its AOT store (`init` among them,
+`parallel/batch.py:184-187`).
 """
 from __future__ import annotations
 
@@ -64,7 +65,8 @@ class BatchPlanner:
     oracle parameters are batched too (per-problem worlds, or a leading axis
     of 1 for one world). The global batch must divide over the mesh.
     `device=None` takes the solver's device; any other, and the mesh's, must
-    be it. `aot_prefix` runs the solves through captured chunk programs.
+    be it. `aot_prefix` runs the solves and the inits' pretraining through
+    captured programs.
     """
 
     def __init__(self, solver, mesh=None, device=None, aot_prefix: str | None = None):
@@ -77,9 +79,10 @@ class BatchPlanner:
         if self.mesh.distributed:
             solver = solver.with_mesh(self.mesh)
         # aot_prefix routes every solve (run, run_grouped, the tracked loops)
-        # through captured chunk programs keyed by prefix, solver config,
-        # group size, dtype and argument shapes; aot_events lists each program
-        # resolved, {"program", "loaded", "seconds"}, as JAX's
+        # and every init's pretraining through captured programs keyed by
+        # prefix, solver config, group size, dtype and argument shapes;
+        # aot_events lists each program resolved, {"program", "loaded",
+        # "seconds"}, as JAX's
         self.solver = solver if aot_prefix is None else solver.with_aot(aot_prefix)
         self.aot_events: list[dict] = [] if aot_prefix is None else self.solver.aot_events
 
@@ -121,7 +124,8 @@ class BatchPlanner:
         """A batch of solver states; the field inits, replay buffers and
         pretraining draw from `generator`. `trajectories` [B, N, d]
         optionally overrides the straight-line initializer (e.g. batched
-        wavefront paths). Returns this rank's rows."""
+        wavefront paths). With `aot_prefix` the pretraining replays its
+        captured program. Returns this rank's rows."""
         batch = len(starts)
         return self.solver.init_state(
             generator, self._local(starts, batch), self._local(goals, batch),
@@ -142,7 +146,8 @@ class BatchPlanner:
         shares one field init: the entry point for shared-field solving
         (`init_state(..., group_size=...)`). B must divide into groups and a
         group must share one map (checked on the global inputs); a group may
-        span ranks. Returns this rank's rows."""
+        span ranks (its pretraining needs no collective, so it captures with
+        `aot_prefix` too). Returns this rank's rows."""
         from ..solver.constrained import _check_groups
 
         if not hasattr(self.solver, "run_grouped"):

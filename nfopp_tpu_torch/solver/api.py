@@ -103,9 +103,13 @@ class NFOPPlanner:
     `initial_trajectory_fn(start, goal, length) -> [length, d]` optionally
     overrides the straight-line initializer. `seed` seeds the
     `torch.Generator` (on the solver's device) that every init and step
-    draws from. JAX's host-side step counter, which told its `run` whether
-    it entered at a chunk's start (`api.py:134-181`), is not needed: the
-    port's `run` reads step_count and picks its schedule itself.
+    draws from. JAX's planner always jits `run` (`api.py:137`); this one
+    inits and steps through `solver.with_aot("planner")`, so on the card
+    pretraining and every step count (a chunk's multiple from a chunk's
+    start, or any other) replay captured programs, and on the CPU they are
+    the eager functions. JAX's host-side step counter, which told its `run`
+    whether it entered at a chunk's start (`api.py:134-181`), is not needed:
+    the port's `run` reads step_count and picks its schedule itself.
     """
 
     def __init__(
@@ -116,6 +120,7 @@ class NFOPPlanner:
         initial_trajectory_fn: Callable[[np.ndarray, np.ndarray, int], np.ndarray] | None = None,
     ):
         self._solver = solver
+        self._programs = solver.with_aot("planner")
         self._oracle_params = oracle_params
         self._generator = torch.Generator(device=solver.device).manual_seed(seed)
         self._noise = GeneratorNoise(self._generator)
@@ -130,6 +135,11 @@ class NFOPPlanner:
     def solver(self):
         return self._solver
 
+    @property
+    def aot_events(self) -> list:
+        """The programs the planner resolved (see `solver.with_aot`)."""
+        return self._programs.aot_events
+
     def update_oracle(self, oracle_params: Any) -> None:
         """Swap world data (live obstacle updates in service mode)."""
         self._oracle_params = oracle_params
@@ -143,7 +153,7 @@ class NFOPPlanner:
                 np.asarray(start_point), np.asarray(goal_point),
                 self._solver.config.trajectory_length,
             ))[None]
-        self._state = self._solver.init_state(
+        self._state = self._programs.init_state(
             self._generator,
             np.asarray(start_point, np.float32)[None],
             np.asarray(goal_point, np.float32)[None],
@@ -154,8 +164,8 @@ class NFOPPlanner:
 
     def step(self, num_steps: int = 1):
         """Advance the solve; returns the per-step aux diagnostics [1, steps]."""
-        self._state, aux = self._solver.run(self._state, self._oracle_params, num_steps,
-                                            self._noise)
+        self._state, aux = self._programs.run(self._state, self._oracle_params, num_steps,
+                                              self._noise)
         return aux
 
     def get_path(self) -> np.ndarray:

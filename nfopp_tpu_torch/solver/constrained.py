@@ -140,8 +140,8 @@ def _as_noise(noise):
 
 
 def _program_generator(noise) -> torch.Generator:
-    """The generator a captured chunk program draws from: `noise` itself or
-    the one a `GeneratorNoise` wraps."""
+    """The generator a captured program draws from: `noise` itself or the
+    one a `GeneratorNoise` wraps."""
     generator = noise.generator if isinstance(noise, GeneratorNoise) else noise
     if not isinstance(generator, torch.Generator):
         raise ValueError(
@@ -269,22 +269,47 @@ class _FieldSolver:
     def _pretrain_field(self, state, oracle_params, generator, group_size: int = 1):
         """Field pretraining on uniform random points, on the first problem of
         each group of `group_size` (whose replicas share its field, bounds and
-        world), then repeated over the group."""
+        world), then repeated over the group. On a copy made by `with_aot` the
+        iterations are replays of one captured iteration,
+        `<prefix>-pretrain-b<rows>[-g<G>]` (rows: one per group on this rank),
+        drawing from `generator` in the eager order. A group spanning ranks
+        pretrains on its first row with no collective, so it captures too."""
         cfg = self.config
         batch = state.start.shape[0]
-        params, opt_state = _group_rows((state.field_params, state.field_opt_state), batch,
-                                        group_size)
+        carry = _group_rows((state.field_params, state.field_opt_state), batch, group_size)
         bounds = state.bounds[::group_size]
         oracle_params = _group_rows(oracle_params, batch, group_size)
-        for _ in range(cfg.init_collision_iteration):
-            u = self._rand(generator, batch, (cfg.init_collision_points, self._pose_dim),
-                           group_size)
-            points = uniform_box_points(u, bounds, self._pose_dim == 3)
-            truth = self.oracle_fn(oracle_params, points)
-            _, grads = field_loss_and_grad(cfg, params, points, truth)
-            params, opt_state = self._field_adam(grads, opt_state, params)
+
+        def iterations(carry, bounds, oracle_params, generator, count: int):
+            params, opt_state = carry
+            for _ in range(count):
+                u = self._rand(generator, batch, (cfg.init_collision_points, self._pose_dim),
+                               group_size)
+                points = uniform_box_points(u, bounds, self._pose_dim == 3)
+                truth = self.oracle_fn(oracle_params, points)
+                _, grads = field_loss_and_grad(cfg, params, points, truth)
+                params, opt_state = self._field_adam(grads, opt_state, params)
+            return params, opt_state
+
+        if self.aot_prefix is None:
+            carry = iterations(carry, bounds, oracle_params, generator,
+                               cfg.init_collision_iteration)
+        else:
+            rows = bounds.shape[0]
+            if self.device.type == "cuda":
+                generator = _program_generator(generator)
+            else:
+                carry = tree_map(torch.clone, carry)  # uncaptured, the body writes into its input
+            program = self._program(
+                f"pretrain-b{rows}" + (f"-g{group_size}" if group_size > 1 else ""),
+                lambda c, b, o, g: tree_copy_(c, iterations(c, b, o, g, 1)),
+                (carry, bounds, oracle_params, generator),
+                cfg.init_collision_points, group_size, rows)
+            for _ in range(cfg.init_collision_iteration):
+                carry = program(carry, bounds, oracle_params, generator)
+        # a new tensor per leaf: on the card the carry is the program's buffers
         params, opt_state = tree_map(
-            lambda x: x.repeat_interleave(min(group_size, batch), dim=0), (params, opt_state))
+            lambda x: x.repeat_interleave(min(group_size, batch), dim=0), carry)
         return state._replace(field_params=params, field_opt_state=opt_state)
 
     # ------------------------------------------------------------------ step
@@ -390,15 +415,25 @@ class _FieldSolver:
         With num_steps a multiple of reparametrize_trajectory_freq and every
         problem at the start of a chunk (step_count % freq == 0, as after
         init_state / update_* / set_boundaries / retarget) the schedule is
-        static (`scan_chunked`, or the captured chunk program of a solver made
-        by `with_aot`); otherwise every step decides from step_count (`step`).
-        Reading step_count costs one device sync per call; on a mesh the
-        ranks agree on the schedule (one small all_reduce).
+        static (`scan_chunked`); otherwise it is dynamic: every step decides
+        from step_count (`step`). On a solver made by `with_aot` the static
+        schedule replays the captured chunk program and the dynamic one the
+        captured one-step program. Reading step_count costs one device sync
+        per call, outside any program; on a mesh the ranks agree on the
+        schedule (one small all_reduce).
         """
         freq = self.config.reparametrize_trajectory_freq
         aligned = freq > 1 and all_over_problems(state.step_count % freq == 0, self.mesh)
         if aligned and num_steps % freq == 0:
             return self._static_run(state, oracle_params, num_steps, noise)
+        if self.aot_prefix is None:
+            return self._steps(state, oracle_params, num_steps, noise)
+        return self._run_program(f"step-b{state.start.shape[0]}", self._steps, 1, state,
+                                 oracle_params, num_steps, noise)
+
+    def _steps(self, state, oracle_params: Any, num_steps: int, noise):
+        """`num_steps` steps of the dynamic schedule (`step`); aux stacked
+        [B, num_steps]."""
         noise = self._noise(noise, state.start.shape[0])
         aux = []
         for _ in range(num_steps):
@@ -415,7 +450,8 @@ class _FieldSolver:
         name = f"chunk-b{state.start.shape[0]}" + (f"-g{group_size}" if group_size > 1 else "")
         return self._run_program(
             name, lambda s, o, n, g: self._chunks(s, o, n, g, group_size),
-            state, oracle_params, num_steps, noise, group_size)
+            self.config.reparametrize_trajectory_freq, state, oracle_params, num_steps, noise,
+            group_size)
 
     def _chunks(self, state, oracle_params: Any, num_steps: int, noise, group_size: int):
         """`num_steps` steps of `scan_chunked`'s schedule; aux stacked [B, num_steps]."""
@@ -429,22 +465,30 @@ class _FieldSolver:
                                   self.config.reparametrize_trajectory_freq, field_stride=stride)
         return state, StepAux(*(torch.stack(xs, dim=1) for xs in zip(*aux)))
 
-    # ------------------------------------------------- captured chunk program
+    # ------------------------------------------------------ captured programs
 
-    # set by `with_aot`: the static schedule replays captured chunk programs
+    # set by `with_aot`: runs and pretraining replay captured programs
     aot_prefix: str | None = None
 
     def with_aot(self, prefix: str):
-        """A copy of this solver whose static schedule (`run` from a chunk's
-        start, `run_grouped`, and the tracked loops, planners and services
-        over them) runs as replays of one captured program per chunk, named
-        `<prefix>-chunk-b<B>[-g<G>]` (`utils.aot.aot_or_compile`: the
-        counterpart of the JAX package's one compiled program per solve). A
-        chunk is the eager schedule's freq steps through the same
-        `step_static`. On the card the noise must come from a CUDA
-        `torch.Generator` (or a `GeneratorNoise` over one); on the CPU the
-        chunk runs eagerly. `aot_events` lists each program the copy resolved:
-        captured (loaded False) or taken from the process's store. On a mesh,
+        """A copy of this solver whose runs and pretraining replay captured
+        programs (`utils.aot.aot_or_compile`: the counterpart of the JAX
+        package's compiled `run` and `init_state`):
+
+        - the static schedule (`run` from a chunk's start, `run_grouped`, and
+          the tracked loops, planners and services over them): one program
+          per chunk, `<prefix>-chunk-b<B>[-g<G>]`, the eager schedule's freq
+          steps through the same `step_static` (JAX's `scan_chunked`);
+        - the dynamic schedule (`run` off a chunk's start, or of a step count
+          off the chunk): one program per step, `<prefix>-step-b<B>`, the same
+          `step` (JAX's `lax.scan` of `step`);
+        - pretraining in `init_state`: one program per iteration,
+          `<prefix>-pretrain-b<rows>[-g<G>]` (JAX's `fori_loop`).
+
+        On the card the noise must come from a CUDA `torch.Generator` (or a
+        `GeneratorNoise` over one); on the CPU each program is its eager
+        function. `aot_events` lists each program the copy resolved: captured
+        (loaded False) or taken from the process's store. On a mesh, a run of
         a shared-field group that spans ranks is refused: its all_reduce (over
         gloo, through the host) cannot be captured into a CUDA graph."""
         solver = copy.copy(self)
@@ -459,20 +503,35 @@ class _FieldSolver:
         updated field); a subclass with other orders names its own."""
         return "default"
 
-    def _run_program(self, name: str, chunks: Callable, state, oracle_params: Any,
-                     num_steps: int, noise, group_size: int = 1, key_parts: tuple = ()):
-        """Static-schedule steps as replays of one captured chunk program,
-        `<aot_prefix>-<name>`. `chunks(state, oracle_params, num_steps,
-        noise)` runs the schedule eagerly; the program's body is one chunk of
-        it (freq steps) with its final state written into the input's own
-        tensors, whose buffers then carry the state to the next replay. The
-        key holds the class, the oracle, the config, the step order, the
-        group size, the precision, the shapes and `key_parts`. Each chunk's
-        aux is copied into [B, num_steps] buffers."""
+    def _program(self, name: str, body: Callable, args: tuple, *key_parts):
+        """The captured program `<aot_prefix>-<name>` of `body` on `args`,
+        listed once per key in `aot_events`. The key holds the class, the
+        oracle, the config, the step order, the precision, the arguments'
+        shapes and `key_parts`."""
         from ..utils.aot import aot_or_compile, shape_digest
 
         cfg = self.config
-        freq = cfg.reparametrize_trajectory_freq
+        program = aot_or_compile(
+            f"{self.aot_prefix}-{name}", body, args, type(self).__name__, repr(self.oracle_fn),
+            cfg, self._step_order(), cfg.onf.compute_dtype, *map(shape_digest, args), *key_parts,
+        )
+        if program.key not in self._aot_keys:
+            self._aot_keys.add(program.key)
+            self.aot_events.append({"program": name, "loaded": program.loaded,
+                                    "seconds": round(program.seconds, 2)})
+        return program
+
+    def _run_program(self, name: str, steps: Callable, span: int, state, oracle_params: Any,
+                     num_steps: int, noise, group_size: int = 1, key_parts: tuple = ()):
+        """`num_steps` steps as replays of one captured program of `span`
+        steps, `<aot_prefix>-<name>`: a chunk of the static schedule (span =
+        freq) or one step of the dynamic one (span = 1). `steps(state,
+        oracle_params, num_steps, noise)` runs the schedule eagerly; the
+        program's body is `span` steps of it with the final state written
+        into the input's own tensors, whose buffers then carry the state to
+        the next replay. The key holds the group size, the span and
+        `key_parts` besides `_program`'s. Each replay's aux is copied into
+        [B, num_steps] buffers."""
         batch = state.start.shape[0]
         if group_size > batch:
             raise ValueError(
@@ -487,23 +546,16 @@ class _FieldSolver:
             state = tree_map(torch.clone, state)  # uncaptured, the body writes into its input
 
         def body(s, o, g):
-            new, aux = chunks(s, o, freq, g)
+            new, aux = steps(s, o, span, g)
             return tree_copy_(s, new), aux
 
-        program = aot_or_compile(
-            f"{self.aot_prefix}-{name}", body, (state, oracle_params, noise),
-            type(self).__name__, repr(self.oracle_fn), cfg, self._step_order(), group_size,
-            cfg.onf.compute_dtype, shape_digest(state), shape_digest(oracle_params), *key_parts,
-        )
-        if program.key not in self._aot_keys:
-            self._aot_keys.add(program.key)
-            self.aot_events.append({"program": name, "loaded": program.loaded,
-                                    "seconds": round(program.seconds, 2)})
+        program = self._program(name, body, (state, oracle_params, noise), group_size, span,
+                                *key_parts)
         aux = StepAux(*(torch.empty((batch, num_steps), device=self.device) for _ in range(2)))
-        for c in range(num_steps // freq):
-            state, chunk_aux = program(state, oracle_params, noise)
-            for buf, a in zip(aux, chunk_aux):
-                buf[:, c * freq:(c + 1) * freq] = a
+        for c in range(num_steps // span):
+            state, replay_aux = program(state, oracle_params, noise)
+            for buf, a in zip(aux, replay_aux):
+                buf[:, c * span:(c + 1) * span] = a
         # on the card the state is the program's buffers, which its next replay overwrites
         return (tree_map(torch.clone, state) if on_card else state), aux
 
@@ -563,10 +615,13 @@ class ConstrainedSolver(_FieldSolver):
         """Fresh state for a batch of problems: start/goal [B, 3], bounds [B, 4].
 
         Field init, the replay buffer's uniform pre-fill and any pretraining
-        draw from `generator`. With group_size > 1 (the shared-field group
-        mode, `run_grouped`) the field init and the pretraining points are
-        drawn once per group of `group_size` consecutive problems and repeated
-        over it, so a group's replicas start identical (JAX gives them one
+        draw from `generator`, in that order; on a copy made by `with_aot`
+        the pretraining replays its captured iteration (`_pretrain_field`),
+        and the state equals the eager init's bit for bit. With group_size >
+        1 (the shared-field group mode, `run_grouped`) the field init and the
+        pretraining points are drawn once per group of `group_size`
+        consecutive problems and repeated over it, so a group's replicas
+        start identical (JAX gives them one
         `field_key`, `constrained.py:157`); each problem still draws its own
         replay buffer. A group must share one map: B divisible by group_size,
         equal bounds and oracle leaves within each group. On a mesh the

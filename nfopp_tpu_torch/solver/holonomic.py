@@ -76,7 +76,8 @@ class HolonomicSolver(_FieldSolver):
     ) -> HolonomicState:
         """Fresh state for a batch of problems: start/goal [B, 2], bounds [B, 4];
         field init, the buffer's uniform pre-fill and any pretraining draw
-        from `generator`."""
+        from `generator`, in that order. On a copy made by `with_aot` the
+        pretraining replays its captured iteration (`_pretrain_field`)."""
         cfg = self.config
         start, goal, bounds = self._tensor(start), self._tensor(goal), self._tensor(bounds)
         batch = start.shape[0]

@@ -5,9 +5,11 @@ in f32, or with --bf16 in bf16 as bench.py runs it by default, B problems,
 seeded) on one CUDA card, in the default step order or, with --order, in
 the Jacobi order or the merged field+trajectory step
 (`ExperimentalConstrainedSolver(jacobi_step=True | merged_step=True)`), and
-with --aot (in any order) as replays of the captured chunk program
-(`solver.with_aot`, one CUDA graph per 10-step chunk, captured in the
-warm-up): `--warmup` steps, then
+with --aot (in any order) as replays of the captured programs
+(`solver.with_aot`, captured in the warm-up: one CUDA graph per 10-step
+chunk, or, where --warmup leaves the state off a chunk's start or --steps
+is not a multiple of 10, one per step of the dynamic schedule):
+`--warmup` steps, then
 `--steps` steps timed on the host clock, then the same number of steps under
 torch.profiler. The trace's kernel events give the device's busy time per
 step (kernels on the one stream do not overlap), its idle share, and the
@@ -20,6 +22,7 @@ graph replays per step. Prints one JSON object; the Chrome trace goes to
     python3 -m nfopp_tpu_torch.tools.profile_step --bf16 --trace profiles/torch_step_trace_bf16.json
     python3 -m nfopp_tpu_torch.tools.profile_step --order merged --trace profiles/merged.json
     python3 -m nfopp_tpu_torch.tools.profile_step --aot [--bf16] [--order merged] --trace profiles/aot.json
+    python3 -m nfopp_tpu_torch.tools.profile_step --aot --warmup 25   # off the chunk
 """
 from __future__ import annotations
 
@@ -98,7 +101,7 @@ def main() -> int:
                         help="the step order: the default solver, or the experimental "
                         "jacobi_step / merged_step")
     parser.add_argument("--aot", action="store_true",
-                        help="run the steps as replays of the captured chunk program")
+                        help="run the steps as replays of the captured programs")
     parser.add_argument("--trace", default="profiles/torch_step_trace.json")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -126,7 +129,8 @@ def profile(args) -> dict:
         solver = solver.with_aot("profile")
     g = torch.Generator(device=device).manual_seed(args.seed)
     state = solver.init_state(g, start, goal, bounds, oracle)
-    # warm-up and the timed window use whole chunks of the static schedule
+    # the warm-up captures; whole chunks of it leave the timed window on the
+    # static schedule, any other count on the dynamic one
     state, _ = solver.run(state, oracle, args.warmup, g)
     torch.cuda.synchronize()
     port_kernels.reset_launches()
@@ -176,6 +180,9 @@ def profile(args) -> dict:
         "launch_calls_per_step": len(launches) / args.steps,
         "graph_replays_per_step": len(replays) / args.steps,
         "host_launch_ms_per_step": sum(e["dur"] for e in launches) / 1e3 / args.steps,
+        "host_launch_ms_per_step_by_call": {
+            name: sum(e["dur"] for e in launches if e["name"] == name) / 1e3 / args.steps
+            for name in sorted({e["name"] for e in launches})},
         "top_kernels": [
             {"name": name[:80], "ms_per_step": us / 1e3 / args.steps,
              "launches_per_step": n / args.steps, "share_of_busy": us / busy_us}

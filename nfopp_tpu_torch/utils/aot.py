@@ -37,6 +37,10 @@ tensors (the caller asked for the CPU) it returns `fn` itself with
 - The kernels' launch counters (`kernels.LAUNCHES`) count in Python, so they
   see the capture only: the program records the launches it captured, adds
   them on each replay, and counts none of the warm-up's.
+- The graph reads what `fn` closes over (a solver's constant tensors) at the
+  addresses it had at capture, so a program keeps `fn` alive: a stored
+  program replayed for another solver of the same key (its constants equal
+  by the key) after the capturing solver is gone reads live memory.
 
 No counterpart: JAX's `save_aot`, `try_load_aot` and `aot_path`. A CUDA
 graph holds device addresses of its process and cannot outlive it. What
@@ -274,4 +278,9 @@ def _capture(fn: Callable, example_args: tuple, device: torch.device) -> Callabl
             LAUNCHES[k] += n
         return out
 
+    # the graph also reads tensors that `fn` closes over and its arguments do
+    # not hold (a solver's constants, such as its inverse Hessian): the
+    # program keeps `fn`, and so them, alive for as long as it is stored, so
+    # a replay for another solver of the same key never reads freed memory
+    replay.fn = fn
     return replay

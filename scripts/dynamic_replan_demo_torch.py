@@ -13,14 +13,19 @@ position (the replay buffer ages stale points out): the executed trace must
 stay collision-free against the TRUE moving disc and reach the goal.
 
     python3 scripts/dynamic_replan_demo_torch.py [--cycles 250] [--device cpu]
-    python3 scripts/dynamic_replan_demo_torch.py --session [--fleet 16]
+    python3 scripts/dynamic_replan_demo_torch.py --session [--fleet 16] [--aot]
 
 --session runs the closed loop as a scripted session
 (`service.dynamic_replan_session`, or `fleet_dynamic_session` with --fleet R
 robots on staggered lanes and one shared field): the obstacle script becomes
 per-cycle oracle points, and the session's wall (CUDA events after a
-synchronize) over its cycles is the per-cycle latency. Both modes check the
-executed poses offline against the true disc. The result JSON goes to --out;
+synchronize) over its cycles is the per-cycle latency; with --aot its solver
+is a `with_aot` copy, so the init's pretraining and every burst replay
+captured programs (one per 10-step chunk; `aot_events` in the result), as
+the JAX script's --aot loads its session programs. The host loop needs no
+flag: its `NFOPPlanner` pretrains and steps through captured programs on the
+card (any step count). Both modes check the executed poses offline against
+the true disc. The result JSON goes to --out;
 the JAX script's PNG panels are not drawn here.
 """
 from __future__ import annotations
@@ -241,9 +246,13 @@ def run_session(solver, states, builder, xs, goals, steps_per_cycle: int, step_d
 
 def session_check(aux, dt: float) -> dict:
     """Offline check of an executed trace against the true disc, until each
-    robot reaches its goal (then it is frozen at the goal)."""
+    robot reaches its goal (then it is frozen at the goal); each robot's
+    reach cycle (the first cycle it is at its goal, as the JAX script's
+    `reach_cycle`), None where it never reached."""
     poses = aux.pose.cpu().numpy()
     reached = aux.reached.cpu().numpy()
+    reach = [int(np.argmax(r)) if r.any() else None
+             for r in reached.reshape(len(reached), -1).T]
     centers = np.stack([obstacle_center(c * dt) for c in range(len(poses))])
     if poses.ndim == 3:
         centers = centers[:, None]
@@ -253,6 +262,7 @@ def session_check(aux, dt: float) -> dict:
         "collided": bool((clear[active] < ROBOT_CLEAR).any()),
         "min_clearance_while_active": float(clear[active].min()) if active.any() else None,
         "reached": reached[-1].tolist(),
+        "reach_cycle": reach[0] if reached.ndim == 1 else reach,
     }
 
 
@@ -264,6 +274,8 @@ def session_main(args, device) -> dict:
 
     solver = ConstrainedSolver(config_from_parameters(demo_parameters()), circle_collision,
                                device=device)
+    if args.aot:
+        solver = solver.with_aot("session")
     if args.fleet > 1:
         starts, goals = fleet_lanes(args.fleet)
     else:
@@ -294,6 +306,7 @@ def session_main(args, device) -> dict:
         **check,
         "robot_radius": ROBOT_CLEAR,
         "robot_replans_per_s": len(goals) / (per_cycle_ms * 1e-3),
+        **({"aot_events": solver.aot_events} if args.aot else {}),
     }
 
 
@@ -315,6 +328,9 @@ def main() -> int:
     parser.add_argument("--steps-per-cycle", type=int, default=40,
                         help="session: optimization steps per cycle (a multiple of the "
                              "reparametrization freq)")
+    parser.add_argument("--aot", action="store_true",
+                        help="session: pretrain and run the bursts as replays of captured "
+                             "programs (solver.with_aot)")
     parser.add_argument("--fleet", type=int, default=1, metavar="R",
                         help="session: R robots on staggered lanes crossing the same moving "
                              "disc, one shared field")

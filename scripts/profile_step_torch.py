@@ -9,11 +9,14 @@ bottleneck without a trace: the car scene, run_planner_config in f32, B
 problems initialised from --seed, `run` of --steps steps from the same state,
 one warm-up call and then the minimum of 3 timed calls (host clock around the
 call and a synchronize), as the JAX script does (`scripts/profile_step.py:
-22-38`). With --aot each variant runs on a `with_aot` copy, its chunks
-replaying one captured CUDA graph per 10 steps (the warm-up captures it); a
-variant whose reparametrization freq does not divide --steps runs the
-dynamic schedule, which is eager, and its line says so. Prints one line per
-variant on stderr and one JSON object on stdout.
+22-38`). With --aot each variant runs on a `with_aot` copy (the warm-up
+captures its program): a variant whose reparametrization freq divides
+--steps runs the static schedule, replaying one captured CUDA graph per 10
+steps; the others (no reparametrization, trajectory update only) run the
+dynamic schedule, replaying the captured one-step program, as the JAX
+script's jitted `run` scans `step`. Each line names its schedule and
+whether it ran captured. Prints one line per variant on stderr and one JSON
+object on stdout.
 
     python3 scripts/profile_step_torch.py [--batch 256] [--steps 50] [--aot]
     python3 scripts/profile_step_torch.py --device cpu --batch 2 --steps 10
@@ -70,8 +73,9 @@ def measure(solver, state, oracle, steps: int, device, seed: int) -> tuple[float
 
 
 def profile_variants(device, batch: int, steps: int, aot: bool, seed: int = 0) -> dict:
-    """{label: {us_per_step_per_problem, warmup_s, schedule, captured}} of
-    every variant."""
+    """{label: {us_per_step_per_problem, warmup_s, schedule, captured,
+    programs}} of every variant (programs: what its with_aot copy resolved,
+    with --aot)."""
     import torch
 
     from nfopp_tpu_torch.solver import ConstrainedSolver
@@ -89,11 +93,11 @@ def profile_variants(device, batch: int, steps: int, aot: bool, seed: int = 0) -
         state = solver.init_state(torch.Generator(device=device).manual_seed(seed),
                                   start, goal, bounds, oracle)
         us, warmup_s = measure(solver, state, oracle, steps, device, seed + 1)
+        schedule = "static" if static else "dynamic"
         out[label] = {"us_per_step_per_problem": us, "warmup_s": warmup_s,
-                      "schedule": "static" if static else "dynamic",
-                      "captured": aot and static and device.type == "cuda"}
-        how = ("captured" if out[label]["captured"] else
-               "eager (dynamic schedule)" if not static else "eager")
+                      "schedule": schedule, "captured": aot and device.type == "cuda",
+                      **({"programs": solver.aot_events} if aot else {})}
+        how = f"{'captured' if out[label]['captured'] else 'eager'} ({schedule} schedule)"
         print(f"{label:35s} {us:8.2f} us/step/problem  (warm-up {warmup_s:.1f}s, {how})",
               file=sys.stderr, flush=True)
     return out
@@ -105,7 +109,8 @@ def main() -> int:
     parser.add_argument("--steps", type=int, default=50)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--aot", action="store_true",
-                        help="run each variant as replays of its captured chunk program")
+                        help="run each variant as replays of its captured program (one per "
+                             "chunk, or one per step for the dynamic schedule)")
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = parser.parse_args()
 

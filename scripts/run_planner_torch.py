@@ -5,8 +5,11 @@ the reference's scripts/run_planner.py).
 Car/parking scene, rectangle footprint, SE(2) constrained planner
 (`run_planner_config`, f32), one problem, 1000 iterations through the port's
 ConstrainedSolver: on CUDA every step runs the ONF logits, field-gradient
-and collision kernels once. Optionally renders the field heatmap + trajectory
-to PNG frames (where matplotlib imports).
+and collision kernels once. The solver is a `with_aot` copy, so on the card
+the init's pretraining and every chunk of steps replay captured programs
+(one per 10-step chunk, or one per step where --show-every is not a
+multiple of 10), as the JAX script jits `solver.run`. Optionally renders
+the field heatmap + trajectory to PNG frames (where matplotlib imports).
 
     python3 scripts/run_planner_torch.py [--show-every 100] [--out frames]
     python3 scripts/run_planner_torch.py --iterations 20 --device cpu
@@ -29,7 +32,8 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 def build(seed: int, device):
     """(solver, state, oracle, generator) of one car-scene problem on
-    `device`, the state initialised from a generator seeded with `seed`."""
+    `device`, the state initialised from a generator seeded with `seed`; the
+    solver is a `with_aot("demo")` copy (on the CPU, the eager functions)."""
     import torch
 
     from nfopp_tpu_torch.solver import ConstrainedSolver, run_planner_config
@@ -37,7 +41,8 @@ def build(seed: int, device):
     from nfopp_tpu_torch.worlds import rectangle_collision
 
     oracle, start, goal, bounds = car_world(1, device)
-    solver = ConstrainedSolver(run_planner_config(), rectangle_collision, device=device)
+    solver = ConstrainedSolver(run_planner_config(), rectangle_collision,
+                               device=device).with_aot("demo")
     generator = torch.Generator(device=device).manual_seed(seed)
     state = solver.init_state(generator, start, goal, bounds, oracle)
     return solver, state, oracle, generator

@@ -2,9 +2,10 @@
 workload equals bench.py's leaf for leaf (built through the JAX package's own
 car_environment, pad_obstacle_points, RectangleOracle and
 run_planner_config), its solver choice and its --field-freq refusal follow
-bench.py's, one run of the script (B=2, 20 steps in chunks of 10, a seed
-sweep, the anytime solve, a floor it cannot reach) prints bench.py's keys
-less the dropped ones and exits non-zero after printing, the anytime dict
+bench.py's, a --timed-steps off the chunk runs the one-step program, one
+run of the script (B=2, 20 steps in chunks of 10, a seed sweep, the anytime
+solve, a floor it cannot reach) prints bench.py's keys less the dropped
+ones and exits non-zero after printing, the anytime dict
 gives null where nothing is feasible and scales the reference by the
 iterations run (each against bench.py's own formula on one input), and the
 bench refuses to start without a card unless asked for the CPU. The card's
@@ -126,9 +127,20 @@ def test_field_freq_3_is_refused_as_bench_py_refuses_it():
         bench.main(["--device", "cpu", "--batch", "2", "--field-freq", "3"])
 
 
-def test_a_captured_chunk_off_the_schedule_is_refused():
-    with pytest.raises(SystemExit, match="not a multiple of the reparametrization freq 10"):
-        bench.main(["--device", "cpu", "--batch", "2", "--timed-steps", "15"])
+def test_an_off_chunk_timed_steps_runs_the_step_program(capsys):
+    """--timed-steps 15 (off the 10-step chunk) is accepted: the warm-up and
+    every timed call run the dynamic schedule, on the bench's with_aot copy
+    the one-step program (`step-b2`; on the CPU the step itself). --multi
+    refuses it, as run_batch has the static schedule only."""
+    with pytest.raises(SystemExit, match="run_batch has the static schedule only"):
+        bench.main(["--device", "cpu", "--batch", "2", "--multi", "2", "--timed-steps", "15"])
+    assert bench.main(["--device", "cpu", "--batch", "2", "--steps", "15", "--timed-steps",
+                       "15", "--feasibility-floor", "0"]) == 0
+    out, err = capsys.readouterr()
+    result = json.loads(out.strip().splitlines()[-1])
+    assert result["iterations_per_solve"] == 15 and result["p50_step_path"] == "eager"
+    assert "programs [{'program': 'step-b2', 'loaded': False, 'seconds': 0.0}]" in err
+    assert "chunk-b2" not in err
 
 
 def test_bench_py_s_anytime_artifact_is_never_written():

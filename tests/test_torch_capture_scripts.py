@@ -1,7 +1,8 @@
 """The eleventh slice's scripts on the CPU at tiny sizes: the one-card
 profiling scripts (profile_step2, profile_kernels, bench_grouped,
-profile_grouped) print their JSON object; --aot of run_benchmark_torch and
-replan_latency_torch lists the programs it resolved; and
+profile_grouped) print their JSON object; --aot of run_benchmark_torch,
+replan_latency_torch and dynamic_replan_demo_torch's sessions lists the
+programs it resolved (the demo's sessions equal their eager runs); and
 make_city_map_torch is held against the JAX script: its grid equals
 `city_grid` at seed 0 and the committed assets/movingai/city_0_256.map, its
 first two .scen lines equal the JAX script's, and its whole .scen equals
@@ -98,9 +99,35 @@ def test_replan_latency_and_run_benchmark_list_their_programs(tmp_path):
         capture_output=True, text=True, timeout=300, cwd=ROOT,
         env={"PATH": "/usr/bin:/bin", "OMP_NUM_THREADS": "1"})
     assert result.returncode == 0, result.stderr[-2000:]
-    assert "programs: 0/1 taken from the store" in result.stdout
+    assert "programs: 0/2 taken from the store" in result.stdout
     log = json.loads((tmp_path / "r.json").read_text())
-    assert log["runs"][0]["settings"]["suite"]["aot_events"][0]["program"] == "chunk-b2"
+    events = log["runs"][0]["settings"]["suite"]["aot_events"]
+    assert [e["program"] for e in events] == ["pretrain-b2", "chunk-b2"]
+
+
+@pytest.mark.parametrize("fleet", ["1", "2"])
+def test_dynamic_demo_session_aot_equals_the_eager_session(fleet, tmp_path):
+    """dynamic_replan_demo_torch.py --session --aot: the session's init
+    pretrains through its program and its bursts replay the chunk program
+    (grouped for a fleet); on the CPU the session equals the eager one."""
+    def session(*flags):
+        out = tmp_path / "session.json"
+        result = subprocess.run(
+            [sys.executable, str(ROOT / "scripts" / "dynamic_replan_demo_torch.py"), "--device",
+             "cpu", "--session", "--session-cycles", "3", "--steps-per-cycle", "10", "--fleet",
+             fleet, "--out", str(out), *flags],
+            capture_output=True, text=True, timeout=300, cwd=ROOT,
+            env={"PATH": "/usr/bin:/bin", "OMP_NUM_THREADS": "1"})
+        assert result.returncode == 0, result.stderr[-2000:]
+        return json.loads(out.read_text())
+
+    eager, captured = session(), session("--aot")
+    assert "aot_events" not in eager
+    chunk = "chunk-b1" if fleet == "1" else "chunk-b2-g2"
+    pretrain = "pretrain-b1" + ("" if fleet == "1" else "-g2")
+    assert [e["program"] for e in captured.pop("aot_events")] == [pretrain, chunk]
+    for key in ("robots_reached_goal", "collided", "min_clearance_while_active"):
+        assert captured[key] == eager[key], key
 
 
 def test_city_map_grid_equals_jax_and_the_committed_map():

@@ -217,34 +217,78 @@ def test_run_20_steps_matches_jax(world):
     np.testing.assert_array_equal(got.step_count.numpy(), np.asarray(ref.step_count))
 
 
-def test_dynamic_schedule_matches_jax(world):
-    """11 steps (not a multiple of the reparametrization freq): every step
-    decides from step_count, reparametrizing per problem where due."""
+@pytest.fixture(scope="module")
+def dynamic_ref(world):
+    """JAX's 11 steps from init (not a multiple of the reparametrization
+    freq): (entry state, final state, aux)."""
     state0 = world["state0"]
-    ref, _ = jax.jit(jax.vmap(lambda s: world["jax_solver"].run(s, world["jax_oracle"], 11)))(
+    ref, aux = jax.jit(jax.vmap(lambda s: world["jax_solver"].run(s, world["jax_oracle"], 11)))(
         state0)
-    noise = replay(state0.key, 11)
-    got, aux = world["solver"].run(
-        state_from_jax(to_np(state0), device="cpu"), world["oracle"], 11, noise)
-    assert not noise.queue and tuple(aux.trajectory_loss.shape) == (BATCH, 11)
+    return state0, ref, aux
+
+
+@pytest.fixture(scope="module")
+def mid_chunk_ref(world):
+    """JAX's 10 steps from step 5 with allow_static=False: (entry state,
+    final state, aux)."""
+    run = world["jax_solver"].run
+    state5, _ = jax.jit(jax.vmap(lambda s: run(s, world["jax_oracle"], 5)))(world["state0"])
+    ref, aux = jax.jit(jax.vmap(lambda s: run(s, world["jax_oracle"], 10, allow_static=False)))(
+        state5)
+    return state5, ref, aux
+
+
+def check_dynamic_run(world, solver, case):
+    """`solver.run` from the case's entry state on JAX's draws against JAX's
+    run: trajectories at atol 2e-3, step counts exact, and the first step's
+    losses at test_step_static_matches_jax's rtol 1e-5. Returns (state, aux)."""
+    entry, ref, ref_aux = case
+    steps = ref_aux.field_loss.shape[1]
+    noise = replay(entry.key, steps)
+    got, aux = solver.run(state_from_jax(to_np(entry), device="cpu"), world["oracle"], steps,
+                          noise)
+    assert not noise.queue and tuple(aux.trajectory_loss.shape) == (BATCH, steps)
     np.testing.assert_allclose(got.trajectory.numpy(), np.asarray(ref.trajectory), atol=2e-3)
     np.testing.assert_array_equal(got.step_count.numpy(), np.asarray(ref.step_count))
+    for name in ("field_loss", "trajectory_loss"):
+        np.testing.assert_allclose(getattr(aux, name)[:, 0].numpy(),
+                                   np.asarray(getattr(ref_aux, name))[:, 0], rtol=1e-5)
+    return got, aux
 
 
-def test_run_entered_mid_chunk_matches_jax(world):
+def test_dynamic_schedule_matches_jax(world, dynamic_ref):
+    """11 steps (not a multiple of the reparametrization freq): every step
+    decides from step_count, reparametrizing per problem where due."""
+    check_dynamic_run(world, world["solver"], dynamic_ref)
+
+
+def test_dynamic_schedule_through_the_step_program_matches_jax(world, dynamic_ref):
+    """The same 11 steps on a with_aot copy (replays of the one-step program,
+    on the CPU the step itself): JAX's run at the same tolerances, and the
+    eager port's run bit for bit."""
+    captured = world["solver"].with_aot("test")
+    got = check_dynamic_run(world, captured, dynamic_ref)
+    want = check_dynamic_run(world, world["solver"], dynamic_ref)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(got), tree_leaves(want)))
+    assert [e["program"] for e in captured.aot_events] == [f"step-b{BATCH}"]
+
+
+def test_run_entered_mid_chunk_matches_jax(world, mid_chunk_ref):
     """10 steps (a multiple of the reparametrization freq) from step 5: the
     problems are not at a chunk's start, so run keeps the dynamic schedule,
     as JAX's run does with allow_static=False."""
-    run = world["jax_solver"].run
-    state5, _ = jax.jit(jax.vmap(lambda s: run(s, world["jax_oracle"], 5)))(world["state0"])
-    ref, _ = jax.jit(jax.vmap(lambda s: run(s, world["jax_oracle"], 10, allow_static=False)))(
-        state5)
-    noise = replay(state5.key, 10)
-    got, _ = world["solver"].run(
-        state_from_jax(to_np(state5), device="cpu"), world["oracle"], 10, noise)
-    assert not noise.queue
-    np.testing.assert_allclose(got.trajectory.numpy(), np.asarray(ref.trajectory), atol=2e-3)
-    np.testing.assert_array_equal(got.step_count.numpy(), np.asarray(ref.step_count))
+    check_dynamic_run(world, world["solver"], mid_chunk_ref)
+
+
+def test_run_entered_mid_chunk_through_the_step_program_matches_jax(world, mid_chunk_ref):
+    """The same 10 steps from step 5 on a with_aot copy: the one-step
+    program's replays, held as the eager run against JAX and bit for bit
+    against the eager port's run."""
+    captured = world["solver"].with_aot("test")
+    got = check_dynamic_run(world, captured, mid_chunk_ref)
+    want = check_dynamic_run(world, world["solver"], mid_chunk_ref)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(got), tree_leaves(want)))
+    assert [e["program"] for e in captured.aot_events] == [f"step-b{BATCH}"]
 
 
 @pytest.mark.parametrize("field_freq", [2, 3])
