@@ -57,8 +57,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
      each solve and the field-gradient kernel also once per pretraining
      iteration of each init, paths are finite with pinned endpoints, the
      feasible fraction after the restart round must reach 0.98, and the
-     wavefront init on the card must equal its CPU run bit for bit; its
-     launches join the f32 kernels' counts in the kernel line.
+     wavefront init on the card must equal its CPU run bit for bit; then
+     the same worlds with aot=True (captured programs, as
+     run_benchmark_torch.py --aot): its solve and restart seconds, every
+     problem's feasibility, iterations and path equal to the eager run's
+     bit for bit, 0.98 feasible, its launches held alike; both runs' launches join the f32 kernels' counts
+     in the kernel line.
  11. replanning services (nfopp_tpu_torch.service, through the three driver
      scripts' functions), each f32 kernel (bf16 in f) launched once per step
      run: (a) the dynamic demo's host loop, 40 ticks of WorldState ->
@@ -145,7 +149,29 @@ Phases, each of which raises on failure (the script then exits non-zero):
      per step and their host ms; (c) nfopp_tpu_torch.graft_entry.
      dryrun_multichip(2) with both ranks on cuda:0, every stage passing; (d)
      (b) over nccl on two cards where there are two, else a line saying why
-     not. The launches of (a) and (b) join the kernels' counts.
+     not; (e) every shared-field layout and step order on two ranks
+     sharing the card over gloo (this script's --mesh-cases mode, car scene,
+     f32, 100 steps each, eager and through BatchPlanner(aot_prefix=...),
+     the captured run bit for bit against the eager one): (i) one field
+     over both ranks (B=256, 128 per rank), s per 1000 steps, collectives
+     and their host seconds per step, replays per step; (ii) 15 queries x 16
+     restarts (B=240, 120 per rank, groups of 16: group 7 straddles the
+     ranks) against the 1-process run of the same 240 problems, every
+     problem's feasibility equal and the mean loss within rel 1e-4; (iii)
+     the Jacobi and merged orders on independent problems, each rank's rows
+     bit-identical to the same rows run alone in this process (rank r of 2
+     without a process group: the rank's draws and batch size), and against
+     the 1-process run of all 256, every problem's feasibility equal
+     (Jacobi's rows bit-identical; the merged order's PyTorch reductions
+     and batched products sum in an order that follows the batch size, so
+     its first step before Adam is held at the field tolerances, and the
+     1-process run from an init one float up is printed beside it), and
+     the merged order with one field over both ranks (replicas equal); (iv) fleet_replan_session of 240 robots in 3
+     sub-fleets of 80 (sub-fleet 1 straddles the ranks), one field per
+     sub-fleet, 2 goals x 5 cycles of 20 steps: cycle ms, feasible plans and
+     the least clearance. Kernels 1-3b launched once per step on
+     every rank of (i)-(ii). The launches of (a), (b) and (e) join the
+     kernels' counts.
  16. the bench on the card (bench_torch.py, the counterpart of bench.py):
      (a) the script as a subprocess, as its users run it, B=256 x 1000 steps
      in six modes: the default (bf16, captured) with --feas-sweep 3
@@ -1920,9 +1946,13 @@ def suite_solve(device, seed: int) -> tuple[dict, dict, list, object]:
     the field-gradient kernel also once per pretraining iteration of each
     init, the CUDA wavefront init equal to a CPU run bit for bit, and every
     kernel of the path on the inputs of the suite's next step (the
-    field-gradient kernel also on pretraining's 200 points). Returns the
-    metrics, the suite's launches, its scenarios and its SuiteResult (phase
-    12 plans the same worlds with GPMP2)."""
+    field-gradient kernel also on pretraining's 200 points). Then the same
+    worlds once more with aot=True (captured programs): its solve and
+    restart seconds, every problem's feasibility, iterations and path equal
+    to the eager run's bit for bit, the same 0.98 floor, its launches held
+    alike. Returns the
+    metrics, both runs' launches, the scenarios and the eager SuiteResult
+    (phase 12 plans the same worlds with GPMP2)."""
     import argparse as _argparse
 
     import numpy as np
@@ -1948,16 +1978,24 @@ def suite_solve(device, seed: int) -> tuple[dict, dict, list, object]:
         suite_s = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
 
+    pretraining = int(parameters.planner.init_collision_iteration)
+
+    def check_suite_launches(what, probe, launches):
+        """Each f32 kernel once per step of each solve, kernel 2 also once
+        per pretraining iteration of each init."""
+        steps_run = [info["steps_run"] for _, info in probe.parts("solve")]
+        inits = probe.parts("init")
+        for name, count in launches.items():
+            want = sum(steps_run) + (pretraining * len(inits) if name == "field_grad" else 0)
+            if count != (want if name in MAIN_PATH else 0):
+                raise AssertionError(f"{what}: kernel {name} launched {count} times, want "
+                                     f"{want if name in MAIN_PATH else 0} (solves of "
+                                     f"{steps_run} steps, {len(inits)} inits)")
+        return steps_run
+
     inits, solves = probe.parts("init"), probe.parts("solve")
     shortcuts = probe.parts("shortcut")
-    steps_run = [info["steps_run"] for _, info in solves]
-    pretraining = int(parameters.planner.init_collision_iteration)
-    for name, count in launches.items():
-        want = sum(steps_run) + (pretraining * len(inits) if name == "field_grad" else 0)
-        if count != (want if name in MAIN_PATH else 0):
-            raise AssertionError(f"suite path: kernel {name} launched {count} times, want "
-                                 f"{want if name in MAIN_PATH else 0} (solves of {steps_run} "
-                                 f"steps, {len(inits)} inits)")
+    steps_run = check_suite_launches("suite path", probe, launches)
 
     starts = np.stack([sc.start for sc in scenarios])
     goals = np.stack([sc.goal for sc in scenarios])
@@ -2031,6 +2069,36 @@ def suite_solve(device, seed: int) -> tuple[dict, dict, list, object]:
     }
     if feasible < 0.98:
         raise AssertionError(f"suite path: feasible fraction {feasible} below the 0.98 floor")
+
+    # the same worlds once more as replays of captured programs, as
+    # run_benchmark_torch.py --aot runs them; its launches join the suite's
+    with SuiteProbe(runner) as probe:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        captured = runner.run_grid_suite(scenarios, parameters, seed=seed, device=device,
+                                         aot=True, **SUITE_SOLVE)
+        torch.cuda.synchronize()
+        captured_s = time.perf_counter() - t0
+        captured_launches = dict(kernels.LAUNCHES)
+    check_suite_launches("captured suite path", probe, captured_launches)
+    restart = probe.parts("init")[1:] + probe.parts("solve")[1:] + probe.parts("shortcut")[1:]
+    metrics["captured"] = {
+        "run_grid_suite": captured_s, "init": probe.parts("init")[0][0],
+        "solve": probe.parts("solve")[0][0], "restart": total(restart),
+        "feasible_after_restarts": float(captured.feasible.mean()),
+        "decisions_equal": bool(np.array_equal(captured.feasible, result.feasible)
+                                and np.array_equal(captured.iterations, result.iterations)),
+        "paths_bit_identical": bool(np.array_equal(captured.paths, result.paths)),
+    }
+    if metrics["captured"]["feasible_after_restarts"] < 0.98:
+        raise AssertionError("captured suite path: feasible fraction "
+                             f"{metrics['captured']['feasible_after_restarts']} below the 0.98 "
+                             "floor")
+    if not (metrics["captured"]["decisions_equal"] and metrics["captured"]["paths_bit_identical"]):
+        raise AssertionError("captured suite path: feasibility, iterations or paths differ from "
+                             "the eager suite's")
+    for name in MAIN_PATH:
+        launches[name] += captured_launches[name]
     return metrics, launches, scenarios, result
 
 
@@ -3054,7 +3122,7 @@ def mesh_pair(tmp, name: str, seed: int, backend: str, extra: tuple, per_rank: i
 
 def mesh_phase(seed: int, main_digest: dict, eager_f32: float, card: str) -> tuple[dict, dict]:
     """Phase 15 (see the module): returns its metrics and the launches of
-    the ranks' solves (15a and 15b), summed."""
+    the ranks' solves (15a, 15b and 15e), summed."""
     import tempfile
 
     import torch
@@ -3119,6 +3187,14 @@ def mesh_phase(seed: int, main_digest: dict, eager_f32: float, card: str) -> tup
             print(json.dumps({"nccl_world2": f"not run: {torch.cuda.device_count()} card"}),
                   flush=True)
             metrics["15d"] = f"not run: {torch.cuda.device_count()} card"
+
+        # (e) every shared-field layout and step order, eager and captured
+        t0 = time.perf_counter()
+        metrics["15e"], case_launches = mesh_cases(
+            tmp, seed, metrics["15b"]["grouped"]["s_per_1000_steps_per_rank"])
+        metrics["15e"]["process_s"] = time.perf_counter() - t0
+        for name in MAIN_PATH:
+            launches[name] += case_launches[name]
     return metrics, launches
 
 
@@ -3160,6 +3236,425 @@ def mesh_pair_metrics(name: str, pair: list, grouped: list, one: dict) -> dict:
         "kernels_held": {f"rank{i}": rank["kernels_held"]["max_abs_err"]
                          for i, rank in enumerate(pair + grouped)},
     }
+
+
+# phase 15e: every shared-field layout and step order on two ranks sharing
+# cuda:0 over gloo, each rank a process of this script's --mesh-cases mode
+MESH_CASE_STEPS = 100
+MESH_STRADDLE = (240, 16)  # 15 queries x 16 restarts: group 7, rows 112-127, straddles
+MESH_ORDERS = (("jacobi", 1), ("merged", 1), ("merged", BATCH))  # (order, group size)
+MESH_FLEET = {"robots": 240, "subgroups": 3, "group_size": 80, "steps": 20, "goals": 2,
+              "cycles": 5}
+MESH_DEVICE = "cuda:0"  # both ranks' card, and the 1-process runs'
+
+
+def mesh_case(mesh, seed: int, name: str, solver, batch: int, group_size: int) -> dict:
+    """One 15e case on this rank: MESH_CASE_STEPS steps of `run_grouped` (of
+    `run` for group_size 1) from BatchPlanner's init of `batch` copies of the
+    car query, eager and then captured (its program captured from another
+    generator first); returns its numbers, the eager run's final state and
+    aux, and whether the captured run's equal them bit for bit."""
+    import torch
+
+    from nfopp_tpu_torch import kernels
+    from nfopp_tpu_torch.parallel import BatchPlanner, gather_batch, mean_over_problems
+    from nfopp_tpu_torch.parallel.mesh import COLLECTIVES, barrier, reset_collectives
+    from nfopp_tpu_torch.solver import evaluate_path
+    from nfopp_tpu_torch.tools.scene import car_world
+    from nfopp_tpu_torch.utils.tree import tree_leaves
+    from nfopp_tpu_torch.worlds import rectangle_collision
+
+    oracle, starts, goals, bounds = car_world(batch, mesh.device)
+    steps, freq = MESH_CASE_STEPS, solver.config.reparametrize_trajectory_freq
+    runs = {}
+    for mode in ("eager", "captured"):
+        planner = BatchPlanner(solver, mesh, aot_prefix=None if mode == "eager" else f"15e-{name}")
+        generator = torch.Generator(device=mesh.device).manual_seed(seed)
+        if group_size == 1:
+            state = planner.init_batch(generator, starts, goals, bounds, oracle)
+            run = partial(planner.run, oracle_params=oracle, num_steps=steps)
+        else:
+            state = planner.init_batch_grouped(generator, starts, goals, bounds, oracle,
+                                               group_size)
+            run = partial(planner.run_grouped, oracle_params=oracle, num_steps=steps,
+                          group_size=group_size)
+        if mode == "captured":
+            run(state, noise=torch.Generator(device=mesh.device).manual_seed(seed + 99))
+        torch.cuda.synchronize()
+        barrier(mesh)
+        reset_collectives()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        final, aux = run(state, noise=generator)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        collectives, launches = dict(COLLECTIVES), dict(kernels.LAUNCHES)
+        runs[mode] = {"final": final, "aux": aux, "numbers": {
+            "s_per_1000_steps": seconds / steps * 1000,
+            "collectives_per_step": collectives["count"] / steps,
+            "collective_host_ms_per_step": 1e3 * collectives["seconds"] / steps,
+            "launches": launches}}
+        if mode == "captured":
+            chunk = [e for e in planner.aot_events if e["program"].startswith("chunk")]
+            runs[mode]["numbers"]["replays_per_step"] = chunk[0].get("segments", 1) / freq
+    eager = runs["eager"]
+    digest = state_digest((eager["final"], eager["aux"]))
+    collides, _ = evaluate_path(rectangle_collision, oracle,
+                                gather_batch(solver.full_trajectory(eager["final"]), mesh))
+    replicas = None
+    if group_size > 1:
+        field = gather_batch((eager["final"].field_params, eager["final"].field_opt_state), mesh)
+        replicas = all(bool(torch.equal(g, g[:, :1].expand_as(g))) for leaf in tree_leaves(field)
+                       for g in [leaf.reshape((-1, group_size) + tuple(leaf.shape[1:]))])
+    return {
+        "name": name, "batch": batch, "group_size": group_size, "steps": steps,
+        "eager": eager["numbers"], "captured": runs["captured"]["numbers"],
+        "captured_equals_eager": digest == state_digest((runs["captured"]["final"],
+                                                         runs["captured"]["aux"])),
+        "replicas_equal": replicas,
+        "feasible": [bool(f) for f in (~collides).cpu().numpy()],
+        "mean_loss": float(mean_over_problems(eager["aux"].trajectory_loss[:, -1], mesh)),
+        "rows_digest": state_digest(eager["final"]),
+    }
+
+
+def least_clearance(paths, samples: int = 5) -> float:
+    """The least distance from the car scene's obstacle points to any of
+    `samples` points per segment of `paths` [B, M, 3] (the footprint's
+    center)."""
+    import numpy as np
+    import torch
+
+    from nfopp_tpu_torch.worlds import car_environment
+
+    obstacles = torch.tensor(np.asarray(car_environment().obstacle_points, np.float32),
+                             device=paths.device)[:, :2]
+    t = torch.arange(samples, device=paths.device, dtype=paths.dtype) / samples
+    xy = paths[..., :2]
+    dense = (xy[:, :-1, None] + t[:, None] * (xy[:, 1:, None] - xy[:, :-1, None])).reshape(-1, 2)
+    return float(torch.cdist(dense, obstacles).min())
+
+
+def mesh_fleet(mesh, seed: int) -> dict:
+    """15e (iv): fleet_replan_session of MESH_FLEET on this rank, eager and
+    captured (its burst programs captured by a one-cycle session first)."""
+    import numpy as np
+    import torch
+
+    from nfopp_tpu_torch import kernels
+    from nfopp_tpu_torch.parallel import BatchPlanner, gather_batch
+    from nfopp_tpu_torch.parallel.mesh import COLLECTIVES, barrier, reset_collectives
+    from nfopp_tpu_torch.service import fleet_replan_session, subfleet_generators
+    from nfopp_tpu_torch.solver import ConstrainedSolver, evaluate_path, run_planner_config
+    from nfopp_tpu_torch.tools.scene import car_world
+    from nfopp_tpu_torch.worlds import car_environment, rectangle_collision
+
+    f = MESH_FLEET
+    latency = load_script("replan_latency_torch")
+    solver = ConstrainedSolver(run_planner_config(), rectangle_collision, device=mesh.device)
+    oracle, starts, goals, bounds = car_world(f["robots"], mesh.device)
+    rows = latency.goal_rows(car_environment(), f["robots"], f["goals"])
+    out = {}
+    for mode in ("eager", "captured"):
+        planner = BatchPlanner(solver, mesh, aot_prefix=None if mode == "eager" else "15e-fleet")
+
+        def session(s, goal_rows, cycles):
+            states = planner.init_batch_grouped(
+                torch.Generator(device=mesh.device).manual_seed(s), starts, goals, bounds,
+                oracle, f["group_size"])
+            torch.cuda.synchronize()
+            barrier(mesh)
+            reset_collectives()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            final, aux = fleet_replan_session(
+                planner.solver, states, oracle, goal_rows, cycles, f["steps"], f["group_size"],
+                subfleet_generators(s + 1, f["subgroups"], mesh.device),
+                subgroups=f["subgroups"])
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, final, aux
+
+        if mode == "captured":
+            session(seed + 50, rows[:1], 1)
+        seconds, final, aux = session(seed, rows, f["cycles"])
+        cycles = f["goals"] * f["cycles"]
+        paths = gather_batch(solver.full_trajectory(final), mesh)
+        collides, _ = evaluate_path(solver.oracle_fn, oracle, paths)
+        out[mode] = {"cycle_ms": seconds / cycles * 1e3,
+                     "collectives_per_cycle": COLLECTIVES["count"] / cycles,
+                     "launches": dict(kernels.LAUNCHES),
+                     "digest": state_digest((gather_batch(final, mesh), aux)),
+                     "reached_feasible": float((~collides).float().mean()),
+                     "least_clearance": least_clearance(paths),
+                     "goals_equal": bool(np.array_equal(
+                         gather_batch(final.goal, mesh).cpu().numpy(), rows[-1]))}
+    out["captured_equals_eager"] = out["eager"].pop("digest") == out["captured"].pop("digest")
+    return {**f, **out}
+
+
+def mesh_cases_worker(out: str, seed: int, rank: int, init_file: str) -> int:
+    """One rank of phase 15e: cases (i)-(iv) over gloo on cuda:0; writes
+    their numbers to `out`."""
+    import torch.distributed as dist
+
+    from nfopp_tpu_torch.experimental import ExperimentalConstrainedSolver
+    from nfopp_tpu_torch.kernels import build
+    from nfopp_tpu_torch.parallel import initialize_distributed, problem_mesh
+    from nfopp_tpu_torch.parallel.mesh import barrier
+    from nfopp_tpu_torch.solver import ConstrainedSolver, run_planner_config
+    from nfopp_tpu_torch.worlds import rectangle_collision
+
+    build.load_library()
+    initialize_distributed(None, 2, rank, "gloo",
+                           init_method=pathlib.Path(init_file).resolve().as_uri(), timeout=120)
+    mesh = problem_mesh(device=MESH_DEVICE)
+    barrier(mesh)  # the first collective sets up gloo's pair: not timed
+    config = run_planner_config()
+    solver = ConstrainedSolver(config, rectangle_collision, device=mesh.device)
+    cases = [mesh_case(mesh, seed, "crossing", solver, BATCH, BATCH),
+             mesh_case(mesh, seed, "straddle", solver, *MESH_STRADDLE)]
+    for order, group_size in MESH_ORDERS:
+        solver = ExperimentalConstrainedSolver(config, rectangle_collision,
+                                               device=mesh.device, **{f"{order}_step": True})
+        cases.append(mesh_case(mesh, seed, f"{order}-g{group_size}", solver, BATCH, group_size))
+    fleet = mesh_fleet(mesh, seed)
+    pathlib.Path(out).write_text(json.dumps({"rank": mesh.rank, "cases": cases, "fleet": fleet}))
+    dist.destroy_process_group()
+    return 0
+
+
+def one_process_case(device, seed: int, solver, batch: int, group_size: int,
+                     rank: int | None = None, nudge: bool = False):
+    """A 15e case's eager run in this process alone: its final state and aux.
+    `rank` runs only that rank's rows of the two, laid out as rank `rank` of
+    2 without a process group (the mesh's draws and batch size; for groups
+    inside the ranks, which make no collective); `nudge` moves every
+    waypoint of the init one float up before the run."""
+    import torch
+
+    from nfopp_tpu_torch.parallel import BatchPlanner
+    from nfopp_tpu_torch.parallel.mesh import ProblemMesh
+    from nfopp_tpu_torch.tools.scene import car_world
+
+    oracle, starts, goals, bounds = car_world(batch, device)
+    mesh = None if rank is None else ProblemMesh(None, rank, 2, device)
+    planner = BatchPlanner(solver if mesh is None else solver.with_mesh(mesh), mesh)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    if group_size == 1:
+        state = planner.init_batch(generator, starts, goals, bounds, oracle)
+        if nudge:
+            state = state._replace(trajectory=torch.nextafter(
+                state.trajectory, torch.full_like(state.trajectory, torch.inf)))
+        return planner.run(state, oracle, MESH_CASE_STEPS, generator)
+    state = planner.init_batch_grouped(generator, starts, goals, bounds, oracle, group_size)
+    return planner.run_grouped(state, oracle, MESH_CASE_STEPS, group_size, generator)
+
+
+def merged_step_rows(device, seed: int, config) -> dict:
+    """The merged order's first step of BATCH problems in this process
+    against the same step of each half of them alone, laid out as rank r of
+    2 without a process group (the mesh's draws, no collective): the field
+    gradients and both losses before any Adam update (which can turn a
+    rounding difference in a near-zero gradient into one of lr) within
+    tests/test_field_grad_fused.py's tolerances (rtol 2e-4, atol 2e-5); the
+    largest difference, whether the bits are equal, and how many problems
+    resampled another replay buffer."""
+    import numpy as np
+    import torch
+
+    from nfopp_tpu_torch.experimental import ExperimentalConstrainedSolver
+    from nfopp_tpu_torch.experimental.merged_step import merged_partial_step
+    from nfopp_tpu_torch.parallel import BatchPlanner
+    from nfopp_tpu_torch.parallel.mesh import ProblemMesh
+    from nfopp_tpu_torch.tools.scene import car_world
+    from nfopp_tpu_torch.utils.tree import tree_leaves, tree_rows
+    from nfopp_tpu_torch.worlds import rectangle_collision
+
+    solver = ExperimentalConstrainedSolver(config, rectangle_collision, device=device,
+                                           merged_step=True)
+    oracle, starts, goals, bounds = car_world(BATCH, device)
+    state = BatchPlanner(solver).init_batch(torch.Generator(device=device).manual_seed(seed),
+                                            starts, goals, bounds, oracle)
+
+    def step(s, on):
+        noise = on._noise(torch.Generator(device=device).manual_seed(seed + 1),
+                          s.start.shape[0])
+        new, grads, field_loss, traj_loss = merged_partial_step(on, s, oracle, noise)
+        return (grads, field_loss, traj_loss), new.buffer_points
+
+    (whole, buffers), half = step(state, solver), BATCH // 2
+    worst, bits, resampled = 0.0, True, 0
+    for r in range(2):
+        rows = slice(r * half, (r + 1) * half)
+        got, got_buffers = step(tree_rows(state, rows.start, rows.stop),
+                                solver.with_mesh(ProblemMesh(None, r, 2, device)))
+        resampled += int((got_buffers != buffers[rows]).flatten(1).any(1).sum())
+        for a, b in zip(tree_leaves(got), tree_leaves(tree_rows(whole, rows.start, rows.stop))):
+            a, b = a.double().cpu().numpy(), b.double().cpu().numpy()
+            bits &= bool(np.array_equal(a, b))
+            worst = max(worst, float(np.abs(a - b).max()))
+            if not np.allclose(a, b, rtol=2e-4, atol=2e-5):
+                raise AssertionError(f"phase 15e merged: the first step of rows {rows.start}:"
+                                     f"{rows.stop} alone differs from the whole batch's "
+                                     f"({float(np.abs(a - b).max())})")
+    return {"max_abs_diff": worst, "bit_identical": bits,
+            "problems_with_another_buffer": resampled}
+
+
+def mesh_cases(tmp: pathlib.Path, seed: int, grouped_eager: list) -> tuple[dict, dict]:
+    """Phase 15e (see the module): two --mesh-cases ranks, then the holds
+    against eager runs in this process. `grouped_eager`: 15b-grouped's s
+    per 1000 steps per rank. Returns the metrics and the launches summed."""
+    import subprocess
+
+    outs = [tmp / f"15e-{r}.json" for r in range(2)]
+    logs = [tmp / f"15e-{r}.log" for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--seed", str(seed), "--mesh-cases",
+         str(outs[r]), "--rank", str(r), "--init-file", str(tmp / "rdv-15e")],
+        cwd=str(ROOT), stdout=logs[r].open("w"), stderr=subprocess.STDOUT) for r in range(2)]
+    try:
+        for p in procs:
+            p.wait(timeout=MESH_TIMEOUT)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            raise AssertionError(f"phase 15e: rank {r} failed (rc {p.returncode}):\n"
+                                 + "\n".join(logs[r].read_text().splitlines()[-30:]))
+    return hold_mesh_cases([json.loads(o.read_text()) for o in outs], seed, grouped_eager)
+
+
+def hold_mesh_cases(ranks: list, seed: int, grouped_eager: list) -> tuple[dict, dict]:
+    """Phase 15e's holds on the ranks' numbers `ranks`, and its metrics and
+    launches."""
+    import numpy as np
+    import torch
+
+    from nfopp_tpu_torch.experimental import ExperimentalConstrainedSolver
+    from nfopp_tpu_torch.solver import ConstrainedSolver, evaluate_path, run_planner_config
+    from nfopp_tpu_torch.tools.scene import car_world
+    from nfopp_tpu_torch.utils.tree import tree_rows
+    from nfopp_tpu_torch.worlds import rectangle_collision
+
+    device = torch.device(MESH_DEVICE)
+    config = run_planner_config()
+    launches = {name: 0 for name in MAIN_PATH}
+    metrics = {}
+    for i, case in enumerate(ranks[0]["cases"]):
+        pair = [rank["cases"][i] for rank in ranks]
+        name, what = case["name"], f"phase 15e {case['name']}"
+        for r, c in enumerate(pair):
+            if not c["captured_equals_eager"]:
+                raise AssertionError(f"{what}: rank {r}'s captured run differs from its eager run")
+            if c["replicas_equal"] is False:
+                raise AssertionError(f"{what}: a shared field's replicas differ")
+            if name in ("crossing", "straddle"):
+                for mode in ("eager", "captured"):
+                    check_launches(c[mode]["launches"], MAIN_PATH, c["steps"],
+                                   f"{what} rank {r} {mode}")
+            if c["eager"]["collectives_per_step"] != c["captured"]["collectives_per_step"]:
+                raise AssertionError(f"{what}: rank {r} makes {c['captured']} collectives per "
+                                     f"step captured, {c['eager']} eager")
+            for mode in ("eager", "captured"):
+                for k in MAIN_PATH:
+                    launches[k] += c[mode]["launches"][k]
+        row = {"batch": case["batch"], "group_size": case["group_size"], "steps": case["steps"],
+               "captured_equals_eager": True, "replicas_equal": case["replicas_equal"],
+               **{f"{mode}_{key}": [c[mode][key] for c in pair]
+                  for mode in ("eager", "captured")
+                  for key in ("s_per_1000_steps", "collectives_per_step",
+                              "collective_host_ms_per_step")},
+               "replays_per_step": [c["captured"]["replays_per_step"] for c in pair],
+               "feasible_fraction": float(np.mean(case["feasible"])),
+               "mean_loss": case["mean_loss"]}
+        if name == "crossing":
+            row["grouped_15b_eager_s_per_1000_steps"] = grouped_eager
+        def against_one_process(solver):
+            """The case's eager run in this process alone: every problem's
+            feasibility equal, and (but for the merged order, below) the
+            mean loss within MESH_LOSS_RTOL."""
+            final, aux = one_process_case(device, seed, solver, case["batch"],
+                                          case["group_size"])
+            oracle = car_world(case["batch"], device)[0]
+            collides, _ = evaluate_path(rectangle_collision, oracle, torch.cat(
+                [final.start[:, None], final.trajectory, final.goal[:, None]], dim=1))
+            one_loss = float(aux.trajectory_loss[:, -1].mean())
+            if case["feasible"] != [bool(f) for f in (~collides).cpu().numpy()]:
+                raise AssertionError(f"{what}: per-problem feasibility differs from 1 process")
+            if (abs(case["mean_loss"] - one_loss) > MESH_LOSS_RTOL * abs(one_loss)
+                    and not name.startswith("merged")):
+                raise AssertionError(f"{what}: mean loss {case['mean_loss']} against "
+                                     f"{one_loss} of 1 process")
+            row.update(decisions_equal=True, one_process_mean_loss=one_loss)
+            return final, aux
+
+        if name == "straddle":
+            against_one_process(ConstrainedSolver(config, rectangle_collision, device=device))
+        if name.endswith("-g1"):
+            order = name.split("-")[0]
+            solver = ExperimentalConstrainedSolver(config, rectangle_collision, device=device,
+                                                   **{f"{order}_step": True})
+            # the mesh's witness: each rank's rows run alone in this process
+            # at the rank's batch size, with the rank's draws; no group
+            # crosses the ranks, so the rows must be the same bits
+            for r, c in enumerate(pair):
+                if c["rows_digest"] != state_digest(one_process_case(
+                        device, seed, solver, case["batch"], 1, rank=r)[0]):
+                    raise AssertionError(f"{what}: rank {r}'s rows differ from the same rows "
+                                         "run alone in one process")
+            row["rows_bit_identical_to_each_rank_alone"] = True
+            final, aux = against_one_process(solver)
+            half = case["batch"] // 2
+            differ = [r for r, c in enumerate(pair)
+                      if c["rows_digest"] != state_digest(tree_rows(final, r * half,
+                                                                   (r + 1) * half))]
+            row["rows_bit_identical_to_one_process"] = not differ
+            # the Jacobi order's field passes are the port's kernels, one CTA
+            # per problem, so a rank's rows are the whole batch's; the merged
+            # order's are PyTorch reductions and cuBLAS batched products,
+            # whose summation order follows the batch size (128 rows against
+            # 256). Its rows are held against each rank alone (above) and
+            # its first step against the whole batch's; the whole batch run
+            # from an init one float away shows how far such runs part
+            if differ and order == "jacobi":
+                raise AssertionError(f"{what}: rank(s) {differ}'s rows differ from the "
+                                     "1-process run's")
+            if order == "merged":
+                row["first_step_against_one_process"] = merged_step_rows(device, seed, config)
+                losses = aux.trajectory_loss[:, -1]
+                nudged = one_process_case(device, seed, solver, case["batch"], 1,
+                                          nudge=True)[1].trajectory_loss[:, -1]
+                row["one_process_init_one_float_up"] = {
+                    "mean_loss": float(nudged.mean()),
+                    "max_abs_loss_diff": float((nudged - losses).abs().max())}
+        metrics[name] = row
+        log(f"phase 15e {name}: {json.dumps(row)}")
+    fleet = [rank["fleet"] for rank in ranks]
+    for r, f in enumerate(fleet):
+        if not (f["captured_equals_eager"] and f["eager"]["goals_equal"]):
+            raise AssertionError(f"phase 15e fleet: rank {r}'s captured session differs from "
+                                 "its eager one, or the goals are not the last goal row")
+        local, sub = f["robots"] // 2, f["robots"] // f["subgroups"]
+        held = sum(max(s * sub, r * local) < min((s + 1) * sub, (r + 1) * local)
+                   for s in range(f["subgroups"]))  # the sub-fleets rank r runs bursts of
+        for mode in ("eager", "captured"):
+            check_launches(f[mode]["launches"], MAIN_PATH,
+                           f["goals"] * f["cycles"] * held * f["steps"],
+                           f"phase 15e fleet rank {r}")
+            for k in MAIN_PATH:
+                launches[k] += f[mode]["launches"][k]
+    metrics["fleet"] = {**{k: fleet[0][k] for k in MESH_FLEET}, "captured_equals_eager": True,
+                        **{f"{mode}_{key}": [f[mode][key] for f in fleet]
+                           for mode in ("eager", "captured")
+                           for key in ("cycle_ms", "collectives_per_cycle")},
+                        "reached_feasible": fleet[0]["eager"]["reached_feasible"],
+                        "least_clearance": fleet[0]["eager"]["least_clearance"]}
+    log(f"phase 15e fleet: {json.dumps(metrics['fleet'])}")
+    return metrics, launches
 
 
 # phase 16, the bench on the card: bench_torch.py in six modes as its users run
@@ -3671,6 +4166,10 @@ def main() -> int:
     parser.add_argument("--seed", type=int, default=0, help="seed of weights, data and noise")
     parser.add_argument("--mesh-worker", default=None, metavar="OUT",
                         help="run one rank of phase 15 (the script's arguments follow --)")
+    parser.add_argument("--mesh-cases", default=None, metavar="OUT",
+                        help="run one rank of phase 15e (with --rank and --init-file)")
+    parser.add_argument("--rank", type=int, default=0, help=argparse.SUPPRESS)
+    parser.add_argument("--init-file", default=None, help=argparse.SUPPRESS)
     parser.add_argument("script_args", nargs="*", help=argparse.SUPPRESS)
     args = parser.parse_args()
 
@@ -3682,6 +4181,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     if args.mesh_worker is not None:
         return mesh_worker(args.mesh_worker, args.seed, args.script_args)
+    if args.mesh_cases is not None:
+        return mesh_cases_worker(args.mesh_cases, args.seed, args.rank, args.init_file)
     from nfopp_tpu_torch.kernels import build
     from nfopp_tpu_torch.tools.scene import card_line
 

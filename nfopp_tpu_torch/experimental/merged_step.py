@@ -24,7 +24,9 @@ product of two bf16 values is exact in f32, so this is JAX's bf16 x bf16
 product with f32 accumulation (`preferred_element_type`).
 
 Noise is drawn as the Jacobi order draws it: `field_sample_pre` (a uniform
-block, then a normal block), then the trajectory's t [B, N-1, S].
+block, then a normal block), then the trajectory's t [B, N-1, S], each from
+the noise source the solver's step gives it (on a mesh, this rank's rows of
+the block drawn for the global batch).
 
 The replay buffer is resampled with the weights sigmoid(z) * exp(-decay *
 age), WITHOUT the `buffer_weight_floor` term of the default and Jacobi
@@ -49,9 +51,7 @@ from ..ops.losses import (
     softplus_beta,
 )
 from ..ops.sampling import gumbel_topk_log_indices
-from ..solver.constrained import _group_mean
 from ..solver.field import buffer_log_weights, field_sample_pre
-from ..utils.tree import tree_map
 
 __all__ = [
     "ONFActs",
@@ -341,12 +341,14 @@ def merged_field_and_trajectory(solver, state, oracle_params: Any, noise,
     returned `(state, field_loss, trajectory_loss)`. With group_size > 1 each
     group of that many consecutive problems steps its field on the group's
     mean gradient (the shared-field mode, JAX's grouped merged branch,
-    `nfopp_tpu/experimental/solver.py:135-151`)."""
+    `nfopp_tpu/experimental/solver.py:135-151`), through the solver's
+    `_group_mean_grads`, so that on a mesh a group whose rows several ranks
+    hold averages over all of them."""
     state, field_grads, field_loss, traj_loss = merged_partial_step(
         solver, state, oracle_params, noise
     )
     if group_size > 1:
-        field_grads = tree_map(lambda g: _group_mean(g, group_size), field_grads)
+        field_grads = solver._group_mean_grads(field_grads, state.start.shape[0], group_size)
     params, opt_state = solver._field_adam(field_grads, state.field_opt_state,
                                            state.field_params)
     return state._replace(field_params=params, field_opt_state=opt_state), field_loss, traj_loss

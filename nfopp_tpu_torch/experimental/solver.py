@@ -26,6 +26,13 @@ program of its order (`<prefix>-step-b<B>`), and `run_batch` replays its own
 (`_step_order`) and, for `run_batch`, P. `run_batch` and `run_grouped` keep
 the static schedule only, as JAX's batch and grouped runs have no dynamic
 path.
+
+The Jacobi and merged orders shard over a problem mesh of ranks like the
+default one (`with_mesh`, `BatchPlanner(solver, mesh)`), as JAX's
+`BatchPlanner` jits any solver over its mesh: every draw is this rank's
+rows of the global block, and a group whose rows several ranks hold
+averages through the solver's `_group_mean_grads`. `run_batch` runs on one
+device only, as in JAX.
 """
 from __future__ import annotations
 
@@ -38,7 +45,6 @@ from ..solver.constrained import (
     ConstrainedSolver,
     ConstrainedState,
     StepAux,
-    _as_noise,
     _check_chunkable,
 )
 from ..solver.field import sample_field_points
@@ -80,16 +86,6 @@ class ExperimentalConstrainedSolver(ConstrainedSolver):
         program's key holds it, so two orders of one config never share a
         program."""
         return "merged" if self.merged_step else "jacobi" if self.jacobi_step else "default"
-
-    def with_mesh(self, mesh):
-        """The experimental orders and `run_batch` run in one process: a mesh
-        of ranks (one with a process group) is refused."""
-        if mesh.distributed:
-            raise NotImplementedError(
-                "ExperimentalConstrainedSolver runs in one process; shard the batch with "
-                "ConstrainedSolver"
-            )
-        return super().with_mesh(mesh)
 
     # ------------------------------------------------ jacobi / merged orders
 
@@ -152,7 +148,7 @@ class ExperimentalConstrainedSolver(ConstrainedSolver):
                       problems_per_program: int) -> tuple[ConstrainedState, StepAux]:
         """`num_steps` steps of `scan_chunked`'s schedule over `_step_batch`;
         aux stacked [B, num_steps]."""
-        noise = _as_noise(noise)
+        noise = self._noise(noise, states.start.shape[0])
         states, aux = scan_chunked(
             lambda s, r, f: self._step_batch(s, oracle_params, noise, r, problems_per_program,
                                              with_field=f),
@@ -177,6 +173,11 @@ class ExperimentalConstrainedSolver(ConstrainedSolver):
         `<prefix>-batch-b<B>-p<P>`, with kernels 4, 5, 3a and 3b inside it."""
         freq = self.config.reparametrize_trajectory_freq
         _check_chunkable("run_batch", num_steps, freq)
+        if self.mesh is not None and self.mesh.size > 1:
+            raise NotImplementedError(
+                "run_batch runs on one device: JAX runs it only on one (bench.py:275) and its "
+                "BatchPlanner has no route to it; on a mesh of ranks use run or run_grouped"
+            )
         if self.aot_prefix is None:
             return self._batch_chunks(states, oracle_params, num_steps, noise,
                                       problems_per_program)

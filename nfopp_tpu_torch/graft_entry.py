@@ -18,12 +18,14 @@ What the 1-rank control must equal: every rank cuts its rows from the
 random blocks drawn for the global batch, so the init is bit-equal on any
 mesh, and so is everything the ranks compute row by row without talking
 (`BITS_HOLD`: the smoke step, the pipeline, the polygon solve; and the
-sub-fleet schedule while each sub-fleet lies in one rank, as on 2 ranks). A
-shared field that spans ranks averages its gradients as a sum of per-rank
-sums, which rounds differently from the 1-rank mean, so those stages
-(`shared`, `fleet`, and `subfleets` on more than 2 ranks) and the cross-rank
-mean are held at JAX's tolerances, their replicas bit-equal across ranks.
-Kill -> resume is bit-equal on the same mesh.
+sub-fleet schedule while each sub-fleet's field lies in one rank, as on 2
+ranks). A shared field whose rows several ranks hold, wherever its group
+lies, averages its gradients as a sum of per-rank sums, which rounds
+differently from the 1-rank mean, so those stages (`shared`, `fleet`, and
+`subfleets` on more than 2 ranks, whose sub-fleets then straddle or cover
+several ranks) and the cross-rank mean are held at JAX's tolerances, their
+replicas bit-equal across ranks. Kill -> resume is bit-equal on the same
+mesh.
 """
 from __future__ import annotations
 
@@ -361,7 +363,8 @@ def _compare(mesh_out, control, n_ranks: int) -> dict:
     decision equal, lengths within 0.2, paths within 1.0, endpoints and
     goals exact). Returns {stage: "bits" | "tolerance"}; raises on a miss."""
     stages = sorted({key.split("/")[0] for key in control.files})
-    # on 2 ranks each sub-fleet (half the fleet) lies in one rank
+    # on 2 ranks each sub-fleet (half the fleet) lies in one rank; on more, a
+    # sub-fleet's field crosses ranks
     bits_hold = BITS_HOLD + (("subfleets",) if n_ranks <= 2 else ())
     verdict = {}
     for stage in stages:

@@ -34,8 +34,14 @@ holds it) the fleet sessions take this rank's rows of the states, the goals
 and per-robot oracles of the whole fleet, and return this rank's states and
 the traces of the whole fleet (gathered once at the end). Each rank's
 bursts draw their rows of the block drawn for the whole (sub-)fleet, and a
-shared field spanning ranks averages over them (`_FieldSolver.with_mesh`).
-With sub-fleets, each rank's rows lie in one sub-fleet or hold whole ones.
+shared field whose robots several ranks hold averages over all of them
+(`_FieldSolver.with_mesh`). Sub-fleets may lie anywhere across the ranks:
+a rank runs each sub-fleet's burst on the rows of it that it holds (a
+`with_rows` copy of the solver, which knows every rank's rows of the
+sub-fleet), and a rank that holds none of a sub-fleet's robots joins that
+burst's collectives with an empty wire (`join_grouped`), so every rank
+meets the others in the same order. Where no shared field crosses ranks,
+sub-fleet s is still bit for bit an independent session with source s.
 """
 from __future__ import annotations
 
@@ -44,9 +50,8 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
-from ..ops.sampling import ShardNoise
 from ..parallel.mesh import gather_batch
-from ..utils.tree import tree_map, tree_rows
+from ..utils.tree import tree_leaves, tree_map, tree_rows
 
 __all__ = [
     "SessionAux",
@@ -242,24 +247,29 @@ def fleet_dynamic_session(
     return states, _gather_robots(aux, solver, 1)
 
 
-def _goal_cycles(solver, parts: list, oracles: list, goals: torch.Tensor, cycles_per_goal: int,
-                 follow_index: int, bursts: list) -> tuple[list, SessionAux]:
+def _goal_cycles(solver, parts: list, oracles: list, rows: list, goals: torch.Tensor,
+                 cycles_per_goal: int, follow_index: int, bursts: list) -> tuple[list, SessionAux]:
     """The goal/cycle loop of both replan sessions on S consecutive
-    sub-fleets `parts` (goals [G, R, d]): each goal round retargets every
-    sub-fleet, then each cycle steps them in order, `bursts[s](state,
-    oracle)` being sub-fleet s's optimization burst. Returns the parts and
-    the traces [G, cycles_per_goal, R, ...]."""
-    sub = parts[0].start.shape[0]
+    sub-fleets `parts` (this rank's rows `rows[s]` = (lo, hi) of its goals
+    [G, R, d] each; None where it holds none of sub-fleet s): each goal
+    round retargets every sub-fleet, then each cycle steps them in order,
+    `bursts[s](state, oracle)` being sub-fleet s's optimization burst, or
+    `bursts[s]()` that burst's collectives where this rank holds none of it.
+    Returns the parts and the traces [G, cycles_per_goal, R, ...]."""
     traces = []
     for goal_row in goals:
-        parts = [solver.retarget(part, solver.full_trajectory(part)[:, follow_index],
-                                 goal_row[s * sub:(s + 1) * sub]) for s, part in enumerate(parts)]
+        parts = [None if part is None else
+                 solver.retarget(part, solver.full_trajectory(part)[:, follow_index],
+                                 goal_row[lo:hi]) for part, (lo, hi) in zip(parts, rows)]
         for _ in range(cycles_per_goal):
             lengths, poses = [], []
-            for s in range(len(parts)):
+            for s, part in enumerate(parts):
                 # sub-fleet s+1 replans after sub-fleet s within the same cycle
-                pose = solver.full_trajectory(parts[s])[:, follow_index]
-                parts[s] = bursts[s](solver.update_start(parts[s], pose), oracles[s])
+                if part is None:
+                    bursts[s]()
+                    continue
+                pose = solver.full_trajectory(part)[:, follow_index]
+                parts[s] = bursts[s](solver.update_start(part, pose), oracles[s])
                 lengths.append(_xy_length(solver.full_trajectory(parts[s])))
                 poses.append(pose)
             traces.append((torch.cat(lengths), torch.cat(poses)))
@@ -290,8 +300,8 @@ def replan_session(
                          f"{state.start.shape[0]}; use fleet_replan_session")
     goals = _f32(goals, state.start)
     parts, aux = _goal_cycles(
-        solver, [state], [oracle_params], goals[:, None], cycles_per_goal, follow_index,
-        [lambda st, o: solver.run(st, o, steps_per_cycle, noise)[0]])
+        solver, [state], [oracle_params], [(0, 1)], goals[:, None], cycles_per_goal,
+        follow_index, [lambda st, o: solver.run(st, o, steps_per_cycle, noise)[0]])
     return parts[0], SessionAux(*(x[:, :, 0] for x in aux))
 
 
@@ -343,22 +353,31 @@ def fleet_replan_session(
             raise ValueError(f"subgroups={subgroups} needs one noise source per sub-fleet, "
                              f"got {len(sources)}")
     sub = robots // subgroups
-    if sub % local != 0 and local % sub != 0:
-        raise ValueError(f"sub-fleets of {sub} robots neither hold whole ranks of {local} "
-                         "robots nor fit whole into one")
-    spans, bursts = [], []  # this rank's rows of each sub-fleet it holds, and its burst
+    mesh = getattr(solver, "mesh", None)
+    size = 1 if mesh is None else mesh.size
+    parts, oracles, rows, bursts = [], [], [], []
     for s, source in enumerate(sources):
         lo, hi = max(s * sub, first), min((s + 1) * sub, first + local)
-        if lo >= hi:
+        part = solver
+        if mesh is not None:  # every rank's rows of sub-fleet s
+            part = solver.with_rows([(min(max(r * local - s * sub, 0), sub),
+                                      min(max((r + 1) * local - s * sub, 0), sub))
+                                     for r in range(size)])
+        if lo >= hi:  # the burst's collectives, on a wire of one problem's field
+            width = sum(x[0].numel() for x in tree_leaves(states.field_params))
+            parts.append(None)
+            oracles.append(None)
+            rows.append((0, 0))
+            bursts.append(lambda part=part, width=width: part.join_grouped(
+                steps_per_cycle, group_size, width))
             continue
-        if getattr(solver, "mesh", None) is not None:
-            source = ShardNoise(source, slice(lo - s * sub, hi - s * sub), sub)
-        spans.append((lo - first, hi - first))
-        bursts.append(lambda st, o, source=source: solver.run_grouped(
+        parts.append(tree_rows(states, lo - first, hi - first))
+        oracles.append(tree_rows(oracle_params, lo - first, hi - first, batch=local))
+        rows.append((lo - first, hi - first))
+        bursts.append(lambda st, o, part=part, source=source: part.run_grouped(
             st, o, steps_per_cycle, group_size, source)[0])
-    parts, aux = _goal_cycles(
-        solver, [tree_rows(states, lo, hi) for lo, hi in spans],
-        [tree_rows(oracle_params, lo, hi, batch=local) for lo, hi in spans], goals,
-        cycles_per_goal, follow_index, bursts)
+    parts, aux = _goal_cycles(solver, parts, oracles, rows, goals, cycles_per_goal, follow_index,
+                              bursts)
+    parts = [part for part in parts if part is not None]
     states = parts[0] if len(parts) == 1 else tree_map(lambda *xs: torch.cat(xs), *parts)
     return states, _gather_robots(aux, solver, 2)

@@ -26,13 +26,16 @@ field gradient. The run loop and the field update are shared with
 `with_mesh(mesh)` makes a copy whose batches are one rank's rows of a batch
 sharded over a problem mesh (`parallel/mesh.py`): every random block is drawn
 whole from a generator seeded alike on every rank and cut to this rank's
-rows, a shared-field group that spans ranks averages its gradients with one
-all_reduce per field step, and the run loop's host decision is agreed by all
-ranks.
+rows, and the run loop's host decision is agreed by all ranks. A group may
+lie anywhere in the global batch, as in JAX (any group_size dividing it):
+the groups whose rows more than one rank holds average their gradients with
+one all_reduce per field step, every other group averages on its rank.
+`with_rows(spans)` gives the ranks uneven rows (a sub-fleet's burst).
 """
 from __future__ import annotations
 
 import copy
+import functools
 from typing import Any, Callable, NamedTuple
 
 import numpy as np
@@ -60,7 +63,7 @@ from ..utils.tree import tree_copy_, tree_leaves, tree_map, tree_where
 from .adam import AdamState, adam_init, adam_update
 from .config import SolverConfig
 from .field import field_loss_and_grad, sample_field_points
-from .schedule import scan_chunked
+from .schedule import scan_chunked, static_schedule
 
 __all__ = ["ConstrainedState", "StepAux", "ConstrainedSolver", "state_from_jax"]
 
@@ -79,13 +82,36 @@ def _check_chunkable(name: str, num_steps: int, freq: int) -> None:
         )
 
 
-def _group_rows(tree: Any, batch: int, group_size: int) -> Any:
-    """The first problem of each group: every leaf with a leading problem axis
-    of `batch` rows keeps rows 0, g, 2g, ...; shared leaves (axis 1) stay."""
+def _group_rows(tree: Any, batch: int, rows: torch.Tensor) -> Any:
+    """One problem of each group: every leaf with a leading problem axis of
+    `batch` rows keeps `rows` (the first row of each group held); shared
+    leaves (axis 1) stay."""
     def pick(x):
-        return x[::group_size] if x.ndim and x.shape[0] == batch else x
+        return x[rows] if x.ndim and x.shape[0] == batch else x
 
     return tree_map(pick, tree)
+
+
+@functools.lru_cache(maxsize=1024)
+def _segments(first: int, batch: int, group_size: int) -> tuple:
+    """(group, lo, hi) for each group of `group_size` consecutive global rows
+    that rows first .. first+batch-1 touch: rows [lo, hi) of the `batch`
+    lie in it."""
+    cuts = range(first // group_size * group_size, first + batch, group_size)
+    return tuple((c // group_size, max(c - first, 0), min(c + group_size - first, batch))
+                 for c in cuts)
+
+
+@functools.lru_cache(maxsize=1024)
+def _crossing_groups(spans: tuple, group_size: int) -> tuple:
+    """The groups of which more than one rank holds rows (`spans`: every
+    rank's rows [lo, hi) of the global batch), in order: one slot each on
+    the wire of `_FieldSolver._group_mean_grads`."""
+    holders: dict = {}
+    for lo, hi in spans:
+        for group, _, _ in (_segments(lo, hi - lo, group_size) if hi > lo else ()):
+            holders[group] = holders.get(group, 0) + 1
+    return tuple(sorted(g for g, n in holders.items() if n > 1))
 
 
 def _group_mean(g: torch.Tensor, group_size: int) -> torch.Tensor:
@@ -95,17 +121,25 @@ def _group_mean(g: torch.Tensor, group_size: int) -> torch.Tensor:
     return torch.mean(grouped, dim=1, keepdim=True).expand(grouped.shape).reshape(g.shape)
 
 
-def _check_groups(batch: int, group_size: int, bounds: torch.Tensor, oracle_params: Any) -> None:
+def _check_groups(batch: int, group_size: int, bounds: torch.Tensor, oracle_params: Any,
+                  first: int | None = None) -> None:
     """A shared-field group is one map: every problem of a group has the same
-    bounds and oracle leaves (`parallel/batch.py:208-224`)."""
-    if group_size < 1 or batch % group_size != 0:
-        raise ValueError(f"batch {batch} not divisible by group {group_size}")
+    bounds and oracle leaves (`parallel/batch.py:208-224`). With `first` the
+    rows are a rank's, global rows first .. first+batch-1, each group checked
+    as far as the rank holds it; without, the whole batch, which the groups
+    divide."""
+    if first is None:
+        if group_size < 1 or batch % group_size != 0:
+            raise ValueError(f"batch {batch} not divisible by group {group_size}")
+        first = 0
+    # each row's group's first row among these
+    lead = torch.tensor([lo for _, lo, hi in _segments(first, batch, group_size)
+                         for _ in range(hi - lo)])
     for name, tree in (("oracle_params", oracle_params), ("bounds", bounds)):
         for leaf in tree_leaves(tree):
             if leaf.ndim == 0 or leaf.shape[0] != batch:
                 continue  # one world shared by the whole batch
-            grouped = leaf.reshape((batch // group_size, group_size) + tuple(leaf.shape[1:]))
-            if not bool((grouped == grouped[:, :1]).all()):
+            if not bool((leaf == leaf[lead.to(leaf.device)]).all()):
                 raise ValueError(
                     f"{name} differ within a shared-field group; every problem in a "
                     "group must share one map"
@@ -195,15 +229,50 @@ class _FieldSolver:
         [rank*b, (rank+1)*b) of a global batch of mesh.size*b problems."""
         solver = copy.copy(self)
         solver.mesh = mesh
+        solver.spans = None
         return solver
+
+    # set by `with_rows`: every rank's rows of this copy's global batches
+    spans: tuple | None = None
+
+    def with_rows(self, spans):
+        """A copy of this mesh solver whose batches are this rank's rows of a
+        global batch that the ranks hold unevenly: `spans` gives every rank's
+        rows [lo, hi), in rank order, from 0 to the global batch (a rank may
+        hold none). A sub-fleet's burst runs on such a copy."""
+        spans = tuple((int(lo), int(hi)) for lo, hi in spans)
+        if self.mesh is None or len(spans) != self.mesh.size or spans[0][0] != 0 or any(
+                a[1] != b[0] for a, b in zip(spans, spans[1:])) or any(
+                lo > hi for lo, hi in spans):
+            raise ValueError(f"spans {spans} do not split a global batch over the mesh's "
+                             f"{1 if self.mesh is None else self.mesh.size} ranks")
+        solver = copy.copy(self)
+        solver.spans = spans
+        return solver
+
+    def _spans(self, batch: int) -> tuple:
+        """Every rank's rows [lo, hi) of the global batch of which this rank
+        holds `batch`: the `with_rows` spans, or the mesh's even split."""
+        if self.spans is not None:
+            lo, hi = self.spans[self.mesh.rank]
+            if hi - lo != batch:
+                raise ValueError(f"a batch of {batch} on rank {self.mesh.rank}, whose rows "
+                                 f"are {lo}:{hi} of {self.spans[-1][1]}")
+            return self.spans
+        size = 1 if self.mesh is None else self.mesh.size
+        return tuple((r * batch, (r + 1) * batch) for r in range(size))
+
+    def _first_row(self, batch: int) -> int:
+        """The global row of this rank's first of `batch` rows."""
+        return self._spans(batch)[0 if self.mesh is None else self.mesh.rank][0]
 
     def _block_rows(self, batch: int, per: int = 1) -> tuple[int, slice]:
         """(rows of the global block, this rank's rows of it) for a block
         with one row per `per` consecutive problems, this rank holding
         `batch` problems."""
-        rank, size = (0, 1) if self.mesh is None else (self.mesh.rank, self.mesh.size)
-        lo, hi = rank * batch // per, ((rank + 1) * batch - 1) // per + 1
-        return size * batch // per, slice(lo, hi)
+        first = self._first_row(batch)
+        lo, hi = first // per, (first + batch - 1) // per + 1
+        return self._spans(batch)[-1][1] // per, slice(lo, hi)
 
     def _rand(self, generator: torch.Generator, batch: int, shape: tuple, per: int = 1):
         """Uniform draws [rows, *shape] from `generator`, one row per `per`
@@ -212,14 +281,27 @@ class _FieldSolver:
         u = torch.rand((total,) + tuple(shape), generator=generator, device=generator.device)
         return u[rows].to(self.device)
 
+    def _group_of_rows(self, batch: int, group_size: int) -> torch.Tensor:
+        """For each of this rank's `batch` rows, its group's index among the
+        groups of `group_size` whose rows this rank holds."""
+        first = self._first_row(batch)
+        rows = torch.arange(first, first + batch, device=self.device)
+        return torch.div(rows, group_size, rounding_mode="floor") - first // group_size
+
+    def _group_firsts(self, batch: int, group_size: int) -> torch.Tensor:
+        """This rank's first row in each group of `group_size` it holds rows
+        of."""
+        segments = _segments(self._first_row(batch), batch, group_size)
+        return torch.tensor([lo for _, lo, _ in segments], device=self.device)
+
     def _init_field(self, generator: torch.Generator, batch: int, group_size: int = 1):
         """Field parameters of `batch` problems, drawn once per group of
         `group_size` over the global batch and repeated over this rank's rows
         of each group."""
         total, rows = self._block_rows(batch, group_size)
         params = init_onf_params(generator, self.config.onf, total, self.device)
-        return tree_map(lambda x: x[rows].repeat_interleave(min(group_size, batch), dim=0),
-                        params)
+        index = self._group_of_rows(batch, group_size)
+        return tree_map(lambda x: x[rows][index], params)
 
     def _noise(self, noise, batch: int):
         """The noise source of a step of `batch` problems: on a mesh, this
@@ -231,38 +313,76 @@ class _FieldSolver:
         return ShardNoise(noise, rows, total)
 
     def _check_group_size(self, batch: int, group_size: int) -> None:
-        """A group lies inside this rank's rows (group_size divides them)
-        or spans whole ranks (a multiple of them dividing the global batch)."""
-        if group_size >= 1 and batch % group_size == 0:
-            return
-        size = 1 if self.mesh is None else self.mesh.size
-        if size == 1:
-            raise ValueError(f"batch {batch} not divisible by group_size {group_size}")
-        if group_size % batch != 0 or (size * batch) % group_size != 0:
-            raise ValueError(
-                f"group_size {group_size} is neither a divisor of this rank's batch {batch} "
-                f"nor a multiple of it dividing the global batch {size * batch}"
-            )
+        """A group size divides the global batch, as in JAX; its groups may
+        lie anywhere across the ranks' rows."""
+        total = self._spans(batch)[-1][1]
+        if group_size < 1 or total % group_size != 0:
+            what = "batch" if total == batch else "global batch"
+            raise ValueError(f"{what} {total} not divisible by group_size {group_size}")
 
     def _group_mean_grads(self, grads, batch: int, group_size: int):
-        """Each group's mean gradient on every replica. A group inside this
-        rank's rows averages locally; a group spanning ranks sums its rows
-        here, meets the other ranks in ONE all_reduce over every leaf
-        flattened (each spanning group in its own slot, so every rank gets the
-        same bits) and divides by group_size."""
-        if group_size <= batch:
+        """Each group's mean gradient on every replica. A group whose rows
+        this rank alone holds averages here (`_group_mean`); for the groups
+        of which several ranks hold rows, every rank builds the same [slots,
+        width] wire (one slot per such group, every leaf flattened), writes
+        the sum of its own rows of each into its slot, and the ranks meet in
+        ONE all_reduce (`sum_over_ranks`, a segment boundary of a captured
+        program: `utils.aot.between_replays`), after which each slot divided
+        by group_size is the group's mean, the same bits on every rank. A
+        rank makes this collective whenever any group crosses ranks, even
+        with none of its own rows in one."""
+        slots = _crossing_groups(self._spans(batch), group_size)
+        if not slots:  # every group lies inside one rank
             return tree_map(lambda g: _group_mean(g, group_size), grads)
+        segments = _segments(self._first_row(batch), batch, group_size)
+        # this rank's rows of groups that cross ranks (at most its first and
+        # last group), and the whole groups between them
+        crossing = [(slots.index(group), lo, hi) for group, lo, hi in segments if group in slots]
+        whole = [(lo, hi) for group, lo, hi in segments if group not in slots]
         leaves = tree_leaves(grads)
-        flat = torch.cat([torch.sum(g, dim=0).reshape(-1) for g in leaves])
-        slots, slot = self._block_rows(batch, group_size)
-        if slots == 1:
-            wire = flat[None]
-        else:
-            wire = torch.zeros((slots, flat.numel()), dtype=flat.dtype, device=flat.device)
-            wire[slot] = flat
-        mean = sum_over_ranks(wire, self.mesh)[slot][0] / group_size
-        pieces = iter(torch.split(mean, [g[0].numel() for g in leaves]))
-        return tree_map(lambda g: next(pieces).reshape(g.shape[1:]).expand(g.shape), grads)
+        widths = [g[0].numel() for g in leaves]
+        wire = torch.zeros((len(slots), sum(widths)), dtype=leaves[0].dtype, device=self.device)
+        for slot, lo, hi in crossing:
+            wire[slot] = torch.cat([torch.sum(g[lo:hi], dim=0).reshape(-1) for g in leaves])
+        mean = self._sum_over_ranks(wire) / group_size
+        crossed = {slot: torch.split(mean[slot], widths) for slot, _, _ in crossing}
+
+        def average(i, g):
+            shape = tuple(g.shape[1:])
+            pieces = [(lo, crossed[slot][i].reshape(shape).expand((hi - lo,) + shape))
+                      for slot, lo, hi in crossing]
+            if whole:
+                a, b = whole[0][0], whole[-1][1]
+                pieces.append((a, _group_mean(g[a:b], group_size)))
+            pieces.sort(key=lambda piece: piece[0])
+            return pieces[0][1] if len(pieces) == 1 else torch.cat([x for _, x in pieces])
+
+        averaged = iter([average(i, g) for i, g in enumerate(leaves)])
+        return tree_map(lambda _: next(averaged), grads)
+
+    def _sum_over_ranks(self, wire: torch.Tensor) -> torch.Tensor:
+        """The wire summed over the ranks: a host step between the segments
+        of a captured program (`utils.aot.between_replays`)."""
+        from ..utils.aot import between_replays
+
+        return between_replays(wire, lambda x: sum_over_ranks(x, self.mesh))
+
+    def join_grouped(self, num_steps: int, group_size: int, width: int) -> None:
+        """This rank's part in a `run_grouped` of `num_steps` steps over a
+        copy made by `with_rows` in which it holds no rows: the burst's
+        collectives, one per field step while a group crosses ranks, each
+        with an empty wire of `width` (a problem's field, flattened), so
+        that the ranks that hold rows meet in theirs. The field steps are
+        those of `_chunks`' schedule (`static_schedule`)."""
+        slots = _crossing_groups(self.spans, group_size)
+        if not slots:
+            return
+        wire = torch.zeros((len(slots), width), device=self.device)
+        schedule = static_schedule(num_steps, self.config.reparametrize_trajectory_freq,
+                                   self._static_field_stride())
+        for _, with_field in schedule:
+            if with_field:
+                sum_over_ranks(wire, self.mesh)
 
     # ------------------------------------------------------------------ init
 
@@ -272,13 +392,16 @@ class _FieldSolver:
         world), then repeated over the group. On a copy made by `with_aot` the
         iterations are replays of one captured iteration,
         `<prefix>-pretrain-b<rows>[-g<G>]` (rows: one per group on this rank),
-        drawing from `generator` in the eager order. A group spanning ranks
-        pretrains on its first row with no collective, so it captures too."""
+        drawing from `generator` in the eager order. A group whose rows
+        several ranks hold pretrains on each of them with no collective: each
+        draws the group's row of the global block, so its replicas stay
+        equal, and it captures too."""
         cfg = self.config
         batch = state.start.shape[0]
-        carry = _group_rows((state.field_params, state.field_opt_state), batch, group_size)
-        bounds = state.bounds[::group_size]
-        oracle_params = _group_rows(oracle_params, batch, group_size)
+        firsts = self._group_firsts(batch, group_size)
+        carry = _group_rows((state.field_params, state.field_opt_state), batch, firsts)
+        bounds = state.bounds[firsts]
+        oracle_params = _group_rows(oracle_params, batch, firsts)
 
         def iterations(carry, bounds, oracle_params, generator, count: int):
             params, opt_state = carry
@@ -308,8 +431,8 @@ class _FieldSolver:
             for _ in range(cfg.init_collision_iteration):
                 carry = program(carry, bounds, oracle_params, generator)
         # a new tensor per leaf: on the card the carry is the program's buffers
-        params, opt_state = tree_map(
-            lambda x: x.repeat_interleave(min(group_size, batch), dim=0), carry)
+        index = self._group_of_rows(batch, group_size)
+        params, opt_state = tree_map(lambda x: x[index], carry)
         return state._replace(field_params=params, field_opt_state=opt_state)
 
     # ------------------------------------------------------------------ step
@@ -488,9 +611,17 @@ class _FieldSolver:
         On the card the noise must come from a CUDA `torch.Generator` (or a
         `GeneratorNoise` over one); on the CPU each program is its eager
         function. `aot_events` lists each program the copy resolved: captured
-        (loaded False) or taken from the process's store. On a mesh, a run of
-        a shared-field group that spans ranks is refused: its all_reduce (over
-        gloo, through the host) cannot be captured into a CUDA graph."""
+        (loaded False) or taken from the process's store.
+
+        On a mesh, a chunk whose groups cross ranks makes one all_reduce per
+        field step, which goes through the host under gloo and so cannot sit
+        inside a CUDA graph: its program is captured as segments that end at
+        each collective (`utils.aot.between_replays`). A segment writes the
+        group sums into a fixed buffer, the host runs `sum_over_ranks` on it
+        between the replays, and the next segment reads the result from a
+        fixed buffer: a chunk of freq field steps costs freq collectives, as
+        eagerly, and freq + 1 replays. A program's key holds the mesh's rank
+        and size and the ranks' rows (`with_rows`), besides the shapes."""
         solver = copy.copy(self)
         solver.aot_prefix = prefix
         solver.aot_events = []
@@ -506,19 +637,26 @@ class _FieldSolver:
     def _program(self, name: str, body: Callable, args: tuple, *key_parts):
         """The captured program `<aot_prefix>-<name>` of `body` on `args`,
         listed once per key in `aot_events`. The key holds the class, the
-        oracle, the config, the step order, the precision, the arguments'
-        shapes and `key_parts`."""
+        oracle, the config, the step order, the precision, the mesh layout
+        (rank, size, `with_rows` spans), the arguments' shapes and
+        `key_parts`."""
         from ..utils.aot import aot_or_compile, shape_digest
 
         cfg = self.config
+        layout = None if self.mesh is None else (self.mesh.rank, self.mesh.size, self.spans)
         program = aot_or_compile(
             f"{self.aot_prefix}-{name}", body, args, type(self).__name__, repr(self.oracle_fn),
-            cfg, self._step_order(), cfg.onf.compute_dtype, *map(shape_digest, args), *key_parts,
+            cfg, self._step_order(), cfg.onf.compute_dtype, layout, *map(shape_digest, args),
+            *key_parts,
         )
         if program.key not in self._aot_keys:
             self._aot_keys.add(program.key)
-            self.aot_events.append({"program": name, "loaded": program.loaded,
-                                    "seconds": round(program.seconds, 2)})
+            event = {"program": name, "loaded": program.loaded,
+                     "seconds": round(program.seconds, 2)}
+            segments = getattr(program.fn, "segments", 1)
+            if segments > 1:  # captured in segments around the chunk's collectives
+                event["segments"] = segments
+            self.aot_events.append(event)
         return program
 
     def _run_program(self, name: str, steps: Callable, span: int, state, oracle_params: Any,
@@ -533,12 +671,6 @@ class _FieldSolver:
         `key_parts` besides `_program`'s. Each replay's aux is copied into
         [B, num_steps] buffers."""
         batch = state.start.shape[0]
-        if group_size > batch:
-            raise ValueError(
-                f"a captured run cannot hold a shared-field group spanning ranks (group_size "
-                f"{group_size} over {batch} problems per rank): the group's all_reduce over gloo "
-                "goes through the host, which a CUDA graph cannot capture; run without with_aot"
-            )
         on_card = self.device.type == "cuda"
         if on_card:
             noise = _program_generator(noise)
@@ -626,14 +758,15 @@ class ConstrainedSolver(_FieldSolver):
         replay buffer. A group must share one map: B divisible by group_size,
         equal bounds and oracle leaves within each group. On a mesh the
         arguments are this rank's rows, every draw is cut from the global
-        batch's block, and a group may span whole ranks.
+        batch's block, and a group may lie anywhere across the ranks' rows
+        (group_size dividing the global batch).
         """
         cfg = self.config
         start, goal, bounds = self._tensor(start), self._tensor(goal), self._tensor(bounds)
         batch = start.shape[0]
         if group_size != 1:
             self._check_group_size(batch, group_size)
-            _check_groups(batch, min(group_size, batch), bounds, oracle_params)
+            _check_groups(batch, group_size, bounds, oracle_params, self._first_row(batch))
         trajectory = (self.initial_trajectory(start, goal) if trajectory is None
                       else self._tensor(trajectory))
         field_params = self._init_field(generator, batch, group_size)

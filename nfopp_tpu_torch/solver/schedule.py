@@ -10,7 +10,18 @@ from __future__ import annotations
 
 from typing import Any, Callable
 
-__all__ = ["scan_chunked"]
+__all__ = ["scan_chunked", "static_schedule"]
+
+
+def static_schedule(num_steps: int, freq: int, field_stride: int = 1) -> list:
+    """(with_reparam, with_field) of each of `num_steps` steps of the static
+    schedule: the one schedule of `scan_chunked` and of a rank that joins a
+    run's collectives without rows of its own."""
+    stride = max(1, field_stride)
+    if freq % stride != 0:
+        raise ValueError(f"field_stride {stride} must divide freq {freq}")
+    return [(position == 0, position % stride == 0)
+            for _ in range(num_steps // freq) for position in range(freq)]
 
 
 def scan_chunked(
@@ -23,12 +34,8 @@ def scan_chunked(
     """Run `num_steps` steps of step_fn(state, with_reparam, with_field) ->
     (state, aux); returns the final state and the per-step aux in order.
     Requires freq > 1 and num_steps % freq == 0, as the JAX version."""
-    stride = max(1, field_stride)
-    if freq % stride != 0:
-        raise ValueError(f"field_stride {stride} must divide freq {freq}")
     aux = []
-    for _ in range(num_steps // freq):
-        for position in range(freq):
-            state, a = step_fn(state, position == 0, position % stride == 0)
-            aux.append(a)
+    for with_reparam, with_field in static_schedule(num_steps, freq, field_stride):
+        state, a = step_fn(state, with_reparam, with_field)
+        aux.append(a)
     return state, aux

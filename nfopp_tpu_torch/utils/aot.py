@@ -41,6 +41,15 @@ tensors (the caller asked for the CPU) it returns `fn` itself with
   addresses it had at capture, so a program keeps `fn` alive: a stored
   program replayed for another solver of the same key (its constants equal
   by the key) after the capturing solver is gone reads live memory.
+- A step of `fn` that must run on the host, such as a collective over gloo
+  (`between_replays(x, step)`), splits the program into segments: the
+  capture ends a graph where `fn` reaches it and begins the next, all in
+  one memory pool. A replay runs the first graph, then for each such step
+  `step` on the buffer the graph before it wrote, copies the result into
+  the fixed buffer the graph after it reads, and runs that graph: one host
+  step each, in the eager order. The warm-ups skip the step (they return
+  `x`), so a capture makes no collective. Without such a step a program is
+  one graph.
 
 No counterpart: JAX's `save_aot`, `try_load_aot` and `aot_path`. A CUDA
 graph holds device addresses of its process and cannot outlive it. What
@@ -50,6 +59,7 @@ loads before any timed work.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import pathlib
 import sys
@@ -65,6 +75,7 @@ __all__ = [
     "AotProgram",
     "aot_key",
     "aot_or_compile",
+    "between_replays",
     "content_digest",
     "shape_digest",
     "source_digest",
@@ -74,6 +85,8 @@ _PACKAGE = pathlib.Path(__file__).resolve().parents[1]
 _SOURCE_DIGEST_CACHE: str | None = None
 # the programs captured in this process, by key (JAX's on-disk store)
 _PROGRAMS: dict[str, "AotProgram"] = {}
+# while `_capture` runs `fn`: what `between_replays` does there
+_CAPTURING: "_Segments | None" = None
 
 
 def source_digest() -> str:
@@ -163,6 +176,55 @@ class AotProgram(NamedTuple):
         return self.fn(*args)
 
 
+def between_replays(x: torch.Tensor, step: Callable[[torch.Tensor], torch.Tensor]
+                    ) -> torch.Tensor:
+    """`step(x)`, a step on the host (a collective over gloo) inside a
+    function that may be captured: run as is outside a capture; inside one,
+    the program's segment ends here and each replay runs `step` between
+    this segment and the next (see the module)."""
+    return step(x) if _CAPTURING is None else _CAPTURING.split(x, step)
+
+
+class _Segments:
+    """The graphs of one capture, split at its host steps: a step's input
+    buffer (written by the graph before it), the step, and the fixed buffer
+    its result goes to (read by the graph after it)."""
+
+    def __init__(self, generators: list, pool):
+        self.generators, self.pool = generators, pool
+        self.graphs: list = []
+        self.steps: list = []
+        self.warming = True
+        self.capturing = False
+
+    def begin(self) -> None:
+        graph = torch.cuda.CUDAGraph()
+        for g in self.generators:
+            graph.register_generator_state(g)
+        graph.capture_begin(pool=self.pool)
+        self.graphs.append(graph)
+        self.capturing = True
+
+    def end(self) -> None:
+        self.capturing = False
+        self.graphs[-1].capture_end()
+
+    def split(self, x: torch.Tensor, step: Callable) -> torch.Tensor:
+        if self.warming:
+            return x
+        self.end()
+        result = torch.empty_like(x)
+        self.steps.append((x, step, result))
+        self.begin()
+        return result
+
+    def replay(self) -> None:
+        self.graphs[0].replay()
+        for (x, step, result), graph in zip(self.steps, self.graphs[1:]):
+            result.copy_(step(x))
+            graph.replay()
+
+
 def _device(args: tuple) -> torch.device:
     """The device of the arguments' first tensor (CPU without one)."""
     leaves = [leaf for arg in args for leaf in tree_leaves(arg)]
@@ -220,7 +282,9 @@ def _static_copy(arg: Any, device: torch.device) -> Any:
 
 def _capture(fn: Callable, example_args: tuple, device: torch.device) -> Callable:
     """Warm `fn` up on clones, capture it over static copies of the
-    arguments and return the replaying program."""
+    arguments (in segments where it reaches `between_replays`) and return
+    the replaying program."""
+    global _CAPTURING
     from ..kernels.common import LAUNCHES
 
     static = tuple(_static_copy(arg, device) for arg in example_args)
@@ -228,8 +292,9 @@ def _capture(fn: Callable, example_args: tuple, device: torch.device) -> Callabl
     counted = dict(LAUNCHES)
     stream = torch.cuda.Stream(device)
     stream.wait_stream(torch.cuda.current_stream(device))
-    graph = torch.cuda.CUDAGraph()
+    segments = _Segments([g for _, g in generators], torch.cuda.graph_pool_handle())
     sync_mode = torch.cuda.get_sync_debug_mode()
+    _CAPTURING = segments
     try:
         with torch.cuda.stream(stream):
             # the first call may build what the body's ops build once and keep
@@ -241,14 +306,19 @@ def _capture(fn: Callable, example_args: tuple, device: torch.device) -> Callabl
                 fn(*(a if isinstance(a, torch.Generator) else tree_map(torch.clone, a)
                      for a in static))
             torch.cuda.set_sync_debug_mode(sync_mode)
-        torch.cuda.current_stream(device).wait_stream(stream)
-        LAUNCHES.update(counted)
-        for _, g in generators:
-            graph.register_generator_state(g)
-        with torch.cuda.graph(graph, stream=stream):
+            torch.cuda.synchronize(device)
+            LAUNCHES.update(counted)
+            segments.warming = False
+            segments.begin()
             out = fn(*static)
+            segments.end()
+        torch.cuda.current_stream(device).wait_stream(stream)
         captured = {k: n - counted[k] for k, n in LAUNCHES.items() if n != counted[k]}
     finally:
+        if segments.capturing:  # `fn` raised inside a capture: close it, keep its error
+            with torch.cuda.stream(stream), contextlib.suppress(RuntimeError):
+                segments.end()
+        _CAPTURING = None
         torch.cuda.set_sync_debug_mode(sync_mode)
         LAUNCHES.update(counted)
     static_leaves = [None if isinstance(a, torch.Generator) else tree_leaves(a) for a in static]
@@ -271,7 +341,7 @@ def _capture(fn: Callable, example_args: tuple, device: torch.device) -> Callabl
                 buf.copy_(new)
         for i, g in generators:
             g.set_state(args[i].get_state())
-        graph.replay()
+        segments.replay()
         for i, g in generators:
             args[i].set_state(g.get_state())
         for k, n in captured.items():
@@ -283,4 +353,5 @@ def _capture(fn: Callable, example_args: tuple, device: torch.device) -> Callabl
     # program keeps `fn`, and so them, alive for as long as it is stored, so
     # a replay for another solver of the same key never reads freed memory
     replay.fn = fn
+    replay.segments = len(segments.graphs)
     return replay

@@ -7,7 +7,11 @@ One 2-rank run (this file as a script, `--worker`) computes everything the
 tests below read: the cross-rank mean, a gather round trip, BatchPlanner's
 inits (independent, grouped within a rank, one group spanning both ranks),
 ten steps of `run`, the group-mean field gradients of one step with JAX's
-draws given, and a tracked loop whose ranks finish at different chunks.
+draws given (one group over both ranks, and groups of 4 over 6 rows per
+rank, whose second group straddles them), a tracked loop whose ranks finish
+at different chunks, `run_grouped` in the straddling and the crossing
+layouts (eager and captured), the Jacobi and merged orders, and fleet
+sessions whose sub-fleets straddle the ranks.
 Small solver (N=12, K=12, R=4, hidden 16), as tests/test_torch_batch_planner.py.
 """
 from __future__ import annotations
@@ -45,6 +49,11 @@ CFG = SolverConfig(trajectory_length=12, collision_point_count=12, random_field_
 N = CFG.trajectory_length
 RUN_STEPS = 10
 TIMEOUT = 300  # seconds for each rank, and for each of its collectives
+# the straddling layout: 6 rows per rank in groups of 4, group 1 (rows 4-7)
+# held by both ranks; the crossing layout: one group of all 12
+STRADDLE, STRADDLE_GROUP = 12, 4
+LAYOUTS = {"straddle": STRADDLE_GROUP, "crossing": STRADDLE}
+FIELD_TOL = {"rtol": 2e-4, "atol": 2e-5}  # tests/test_field_grad_fused.py's
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -201,6 +210,75 @@ def dynamic_traces(mesh) -> list:
     return [a.numpy() for a in aux]
 
 
+def named(tree) -> dict:
+    return {name: a.numpy() for name, a in tree_named_leaves(tree)}
+
+
+def grouped_run(solver, mesh, group_size: int, aot: bool = False,
+                batch: int = STRADDLE) -> tuple[dict, int]:
+    """RUN_STEPS steps of `run_grouped` (or of `run`, group_size 1) of
+    `batch` problems from BatchPlanner's init: the whole batch's leaves by
+    name, and the run's collectives."""
+    from nfopp_tpu_torch.parallel import gather_batch
+    from nfopp_tpu_torch.parallel.mesh import COLLECTIVES, reset_collectives
+
+    _, starts, goals, bounds, oracle = scene(batch)
+    planner = BatchPlanner(solver, mesh, aot_prefix="mesh" if aot else None)
+    if group_size == 1:
+        state = planner.init_batch(torch.Generator().manual_seed(7), starts, goals, bounds, oracle)
+    else:
+        state = planner.init_batch_grouped(torch.Generator().manual_seed(7), starts, goals, bounds,
+                                           oracle, group_size)
+    reset_collectives()
+    if group_size == 1:
+        ran, _ = planner.run(state, oracle, RUN_STEPS, torch.Generator().manual_seed(8))
+    else:
+        ran, _ = planner.run_grouped(state, oracle, RUN_STEPS, group_size,
+                                     torch.Generator().manual_seed(8))
+    collectives = COLLECTIVES["count"]
+    return named(ran if mesh is None else gather_batch(ran, mesh)), collectives
+
+
+def replicas_equal(leaves: dict, group_size: int) -> bool:
+    """Every leaf of a run's fields (parameters and Adam moments) the same
+    within each group."""
+    field = [a for name, a in leaves.items()
+             if name.startswith(("field_params", "field_opt_state/mu", "field_opt_state/nu"))]
+    return len(field) > 8 and all((g == g[:, :1]).all() for a in field
+                                  for g in [a.reshape((-1, group_size) + a.shape[1:])])
+
+
+def order_solver(order: str):
+    from nfopp_tpu_torch.experimental import ExperimentalConstrainedSolver
+
+    return ExperimentalConstrainedSolver(CFG, circle_collision, device="cpu",
+                                         **{f"{order}_step": True})
+
+
+# (order, group size) of the orders' runs of BATCH problems: independent,
+# groups inside the ranks, one group over both
+ORDER_RUNS = (("jacobi", 1), ("jacobi", 2), ("merged", 1), ("merged", 2), ("merged", BATCH))
+
+
+def fleet_session(mesh, group_size: int) -> dict:
+    """Two goals x 2 cycles of `fleet_replan_session` of STRADDLE robots in
+    3 sub-fleets of 4 (sub-fleet 1, robots 4-7, straddles two ranks of 6),
+    one field per `group_size`: the final states' leaves and the traces of
+    the whole fleet, by name."""
+    from nfopp_tpu_torch.parallel import gather_batch
+    from nfopp_tpu_torch.service import fleet_replan_session, subfleet_generators
+
+    solver, starts, goals, bounds, oracle = scene(STRADDLE)
+    planner = BatchPlanner(solver, mesh)
+    state = planner.init_batch_grouped(torch.Generator().manual_seed(9), starts, goals, bounds,
+                                       oracle, group_size)
+    rows = np.stack([goals, starts + np.linspace(0.0, 0.2, STRADDLE, dtype=np.float32)[:, None]])
+    final, aux = fleet_replan_session(planner.solver, state, oracle, rows, 2, 10, group_size,
+                                      subfleet_generators(9, 3, "cpu"), subgroups=3)
+    return {**named(final if mesh is None else gather_batch(final, mesh)),
+            **{f"aux/{name}": a for name, a in named(aux).items()}}
+
+
 # --------------------------------------------------------------- the worker
 
 def worker(args) -> None:
@@ -210,6 +288,7 @@ def worker(args) -> None:
     from nfopp_tpu_torch.parallel import (
         gather_batch, initialize_distributed, mean_over_problems, problem_mesh,
     )
+    from nfopp_tpu_torch.parallel.mesh import COLLECTIVES, reset_collectives
     from nfopp_tpu_torch.solver import restore_state
 
     torch.set_num_threads(1)
@@ -254,6 +333,35 @@ def worker(args) -> None:
                 for name, a in tree_named_leaves(gather_batch(grads, mesh))})
     out["field_loss"] = gather_batch(loss, mesh).numpy()
 
+    # the same in the straddling layout: groups of 4 over 6 rows per rank
+    grad_solver, starts, goals, bounds, grad_oracle = scene(STRADDLE)
+    template = grad_solver.init_state(torch.Generator().manual_seed(0), starts, goals, bounds,
+                                      grad_oracle)
+    state = shard_batch(restore_state(template, args.straddle_state), mesh)
+    mesh_solver = grad_solver.with_mesh(mesh)
+    noise = mesh_solver._noise(ReplayNoise([("uniform", inputs["straddle_u"]),
+                                            ("normal", inputs["straddle_normal"])]), STRADDLE // 2)
+    reset_collectives()
+    _, loss, grads = mesh_solver._field_grads(state, shard_batch(grad_oracle, mesh), noise,
+                                              group_size=STRADDLE_GROUP)
+    out["straddle_grad_collectives"] = np.asarray(COLLECTIVES["count"])
+    out.update({f"straddle_grad/{name}": a.numpy()
+                for name, a in tree_named_leaves(gather_batch(grads, mesh))})
+    out["straddle_field_loss"] = gather_batch(loss, mesh).numpy()
+
+    # run_grouped in both layouts, eager then captured, and the collectives of each
+    for layout, group_size in LAYOUTS.items():
+        for mode in ("eager", "captured"):
+            leaves, collectives = grouped_run(solver, mesh, group_size, aot=mode == "captured")
+            out[f"{layout}_{mode}_collectives"] = np.asarray(collectives)
+            out.update({f"{layout}_{mode}/{name}": a for name, a in leaves.items()})
+    for order, group_size in ORDER_RUNS:
+        leaves, _ = grouped_run(order_solver(order), mesh, group_size, batch=BATCH)
+        out.update({f"{order}_{group_size}/{name}": a for name, a in leaves.items()})
+    for group_size in (2, STRADDLE_GROUP):  # groups inside the ranks; one straddling
+        out.update({f"session_{group_size}/{name}": a
+                    for name, a in fleet_session(mesh, group_size).items()})
+
     for group_size in (4, BATCH):  # a field per rank's robots; one spanning both ranks
         paths, field = fleet_paths(mesh, group_size)
         out[f"fleet_{group_size}_paths"] = paths
@@ -283,10 +391,12 @@ def worker(args) -> None:
 
 # ---------------------------------------------------------------- the tests
 
-def jax_grouped_gradients(path: pathlib.Path) -> dict:
-    """JAX's one-step grouped field gradients of GRAD_BATCH problems sharing
-    one field (one group), with the state (as the port's checkpoint at
-    `path`) and the draws the worker replays."""
+def jax_grouped_gradients(path: pathlib.Path, batch: int = GRAD_BATCH,
+                          group_size: int = GRAD_BATCH) -> dict:
+    """JAX's one-step grouped field gradients of `batch` problems in groups
+    of `group_size` sharing a field (by default one group of GRAD_BATCH),
+    with the state (as the port's checkpoint at `path`) and the draws the
+    worker replays."""
     import jax
     import jax.numpy as jnp
 
@@ -305,15 +415,19 @@ def jax_grouped_gradients(path: pathlib.Path) -> dict:
                                  jnp.asarray([0.0, 3.0, 0.0, 3.0], jnp.float32))
     jax_solver = JaxSolver(jcfg, jax_circle_collision)
     k_problems, k_field = jax.random.split(jax.random.PRNGKey(4))
-    keys = jax.random.split(k_problems, GRAD_BATCH)
-    states = jax.jit(jax.vmap(lambda k: jax_solver.init_state(
+    keys = jax.random.split(k_problems, batch)
+    # one field key per group (parallel/batch.py:219-221); one group keeps k_field
+    field_keys = (jnp.broadcast_to(k_field, (batch,) + k_field.shape) if group_size == batch
+                  else jnp.repeat(jax.random.split(k_field, batch // group_size), group_size,
+                                  axis=0))
+    states = jax.jit(jax.vmap(lambda k, fk: jax_solver.init_state(
         k, jnp.asarray(env.start), jnp.asarray(env.goal), jnp.asarray(env.bounds, jnp.float32),
-        jax_oracle, field_key=k_field)))(keys)
-    oracles = jax.tree_util.tree_map(lambda x: jnp.tile(x[None], (GRAD_BATCH,) + (1,) * x.ndim),
+        jax_oracle, field_key=fk)))(keys, field_keys)
+    oracles = jax.tree_util.tree_map(lambda x: jnp.tile(x[None], (batch,) + (1,) * x.ndim),
                                      jax_oracle)
-    step_keys = jax.random.split(jax.random.PRNGKey(5), GRAD_BATCH)
+    step_keys = jax.random.split(jax.random.PRNGKey(5), batch)
     _, losses, grads = jax.jit(lambda s, k: jax_solver._field_grads_grouped(
-        s, oracles, k, GRAD_BATCH))(states, step_keys)
+        s, oracles, k, group_size))(states, step_keys)
     cand = CFG.collision_point_count + N - 1
 
     def draws(key):
@@ -333,14 +447,17 @@ def two_ranks(tmp_path_factory):
     """The 2-rank worker's arrays, and JAX's gradients it was given."""
     tmp = tmp_path_factory.mktemp("mesh")
     jax_side = jax_grouped_gradients(tmp / "state.npz")
+    jax_side["straddle"] = jax_grouped_gradients(tmp / "straddle.npz", STRADDLE, STRADDLE_GROUP)
     values = np.random.default_rng(0).normal(size=(BATCH, 5)).astype(np.float32)
-    np.savez(tmp / "inputs.npz", values=values, u=jax_side["u"], normal=jax_side["normal"])
+    np.savez(tmp / "inputs.npz", values=values, u=jax_side["u"], normal=jax_side["normal"],
+             straddle_u=jax_side["straddle"]["u"], straddle_normal=jax_side["straddle"]["normal"])
     env = dict(os.environ, OMP_NUM_THREADS="1")
     logs = [tmp / f"rank{r}.log" for r in range(2)]
     procs = [subprocess.Popen(
         [sys.executable, __file__, "--worker", "--rank", str(r), "--init-file",
          str(tmp / "rendezvous"), "--inputs", str(tmp / "inputs.npz"), "--state",
-         str(tmp / "state.npz"), "--out", str(tmp / "out.npz")],
+         str(tmp / "state.npz"), "--straddle-state", str(tmp / "straddle.npz"), "--out",
+         str(tmp / "out.npz")],
         cwd=str(ROOT), env=env, stdout=log.open("w"), stderr=subprocess.STDOUT)
         for r, log in enumerate(logs)]
     try:
@@ -479,23 +596,192 @@ def test_fleet_dynamic_session_on_two_ranks_is_one_process_s(two_ranks):
 
 
 def test_group_sizes_a_mesh_refuses():
-    """A group inside a rank divides its rows, one spanning ranks is a
-    multiple of them dividing the global batch; anything else raises, and
-    a captured run refuses a group spanning ranks."""
+    """A mesh takes any group size that divides the global batch, as JAX
+    does, and refuses the others (JAX's own refusals); `run_batch` runs on
+    one device only."""
     solver, starts, goals, bounds, oracle = scene(4)
     mesh = ProblemMesh(None, 0, 2, torch.device("cpu"))  # rank 0 of 2: sizes only
     sharded = solver.with_mesh(mesh)
     state = solver.init_state(torch.Generator().manual_seed(0), starts, goals, bounds, oracle)
     for group_size in (3, 12):
-        with pytest.raises(ValueError, match="neither a divisor"):
+        with pytest.raises(ValueError, match="global batch 8 not divisible"):
             sharded.run_grouped(state, oracle, 10, group_size, torch.Generator())
     with pytest.raises(ValueError, match="not divisible"):
         solver.run_grouped(state, oracle, 10, 8, torch.Generator())
-    with pytest.raises(ValueError, match="cannot be captured|cannot capture"):
-        sharded.with_aot("mesh").run_grouped(state, oracle, 10, 8, torch.Generator())
-    with pytest.raises(ValueError, match="neither a divisor"):
+    with pytest.raises(ValueError, match="global batch 6 not divisible"):
         sharded.init_state(torch.Generator(), starts[:3], goals[:3], bounds[:3],
-                           tree_map(lambda x: x[:3], oracle), group_size=2)
+                           tree_map(lambda x: x[:3], oracle), group_size=4)
+    with pytest.raises(NotImplementedError, match="one device"):
+        order_solver("jacobi").with_mesh(mesh).run_batch(state, oracle, 10, torch.Generator())
+
+
+def test_straddling_group_gradients_across_ranks_match_jax(two_ranks):
+    """Groups of 4 over 6 rows per rank (group 1 straddles the ranks): the
+    mean gradients against JAX's `_field_grads_grouped` with the same state
+    and draws, at test_group_mean_gradients_across_ranks_match_jax's
+    tolerances, in one collective; every group's replicas the same bits."""
+    out, _, jax_side = two_ranks
+    want = jax_side["straddle"]
+    np.testing.assert_allclose(out["straddle_field_loss"], want["loss"], rtol=1e-5)
+    assert int(out["straddle_grad_collectives"]) == 1
+    for name, w in want["grads"].items():
+        got = out[f"straddle_grad/{name}"]
+        np.testing.assert_allclose(got, w, **FIELD_TOL)
+        grouped = got.reshape((-1, STRADDLE_GROUP) + got.shape[1:])
+        assert (grouped == grouped[:, :1]).all(), f"replicas differ in {name}"
+
+
+def results(out: dict, prefix: str) -> dict:
+    """The worker's arrays under `prefix/`, by leaf name."""
+    return {k[len(prefix) + 1:]: a for k, a in out.items() if k.startswith(prefix + "/")}
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_grouped_run_across_ranks_against_one_rank(two_ranks, layout):
+    """RUN_STEPS of run_grouped with groups that cross the ranks, in the
+    straddling and the crossing layouts: within JAX's tolerances of the
+    1-rank run (trajectories atol 2e-5, tests/test_parallel.py:79; every
+    leaf at the gradients' tolerances), every problem's feasibility the
+    same, each group's replicas bit-equal across the ranks."""
+    from nfopp_tpu_torch.solver import evaluate_path
+
+    out, _, _ = two_ranks
+    group_size = LAYOUTS[layout]
+    want, _ = grouped_run(scene(1)[0], None, group_size)
+    got = results(out, f"{layout}_eager")
+    assert got.keys() == want.keys() and replicas_equal(got, group_size)
+    for name, w in want.items():
+        np.testing.assert_allclose(got[name], w, **FIELD_TOL, err_msg=name)
+    np.testing.assert_allclose(got["trajectory"], want["trajectory"], atol=2e-5)
+    solver, _, _, _, oracle = scene(STRADDLE)
+
+    def feasible(leaves):
+        paths = torch.cat([torch.tensor(leaves["start"])[:, None],
+                           torch.tensor(leaves["trajectory"]),
+                           torch.tensor(leaves["goal"])[:, None]], dim=1)
+        return ~evaluate_path(solver.oracle_fn, oracle, paths)[0]
+
+    assert torch.equal(feasible(got), feasible(want))
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_captured_mesh_run_is_the_eager_mesh_run_bit_for_bit(two_ranks, layout):
+    """A `with_aot` copy (BatchPlanner(aot_prefix=)) of a run whose groups
+    cross the ranks equals the eager mesh run bit for bit, with as many
+    collectives: one per field step."""
+    out, _, _ = two_ranks
+    eager, captured = results(out, f"{layout}_eager"), results(out, f"{layout}_captured")
+    assert eager.keys() == captured.keys() and len(eager) > 8
+    for name, a in eager.items():
+        np.testing.assert_array_equal(captured[name], a, err_msg=name)
+    assert int(out[f"{layout}_captured_collectives"]) == int(out[f"{layout}_eager_collectives"])
+    assert int(out[f"{layout}_eager_collectives"]) == RUN_STEPS
+
+
+def rank_alone(solver, group_size: int, rank: int) -> dict:
+    """`grouped_run` of rank `rank`'s rows of BATCH problems alone in this
+    process, laid out as rank `rank` of 2 without a process group: the
+    rank's draws and batch size (for groups inside the ranks, which make no
+    collective)."""
+    mesh = ProblemMesh(None, rank, 2, torch.device("cpu"))
+    return grouped_run(solver.with_mesh(mesh), mesh, group_size, batch=BATCH)[0]
+
+
+@pytest.mark.parametrize("order", ["jacobi", "merged"])
+def test_orders_on_two_ranks(two_ranks, order):
+    """ExperimentalConstrainedSolver's Jacobi and merged orders on the mesh:
+    independent problems, groups inside the ranks, and (merged) one group
+    over both ranks, its replicas equal. Where no group crosses the ranks,
+    each rank's rows are bit for bit the same rows run alone in one process
+    (`rank_alone`), and Jacobi's are the 1-rank run's. Against the 1-rank
+    run the merged order is held at the field tolerances throughout: its
+    hand-written backward calls torch.sigmoid, whose CPU kernel rounds the
+    elements past the last full vector of a tensor differently from those
+    inside one, so a rank's half-batch tensor and the whole batch's can
+    differ in the last bit (on the card its reductions and batched products
+    sum in an order that follows the batch size; chip_smoke.py's phase 15e
+    holds the same witness)."""
+    out, _, _ = two_ranks
+    for group_size in [g for o, g in ORDER_RUNS if o == order]:
+        want, _ = grouped_run(order_solver(order), None, group_size, batch=BATCH)
+        got = results(out, f"{order}_{group_size}")
+        assert got.keys() == want.keys()
+        if group_size < BATCH // 2:
+            halves = [rank_alone(order_solver(order), group_size, r) for r in range(2)]
+            for name, a in got.items():
+                np.testing.assert_array_equal(
+                    a, np.concatenate([h[name] for h in halves]), err_msg=name)
+        for name, w in want.items():
+            if order == "jacobi":
+                np.testing.assert_array_equal(got[name], w, err_msg=name)
+            else:
+                np.testing.assert_allclose(got[name], w, **FIELD_TOL, err_msg=name)
+        assert group_size == 1 or replicas_equal(got, group_size)
+
+
+def test_straddling_fleet_session_against_one_process(two_ranks):
+    """fleet_replan_session of 12 robots in 3 sub-fleets of 4 on two ranks of
+    6: sub-fleet 1 straddles the ranks. With fields of 2 (inside the ranks)
+    the session is the 1-process one bit for bit; with fields of 4 (sub-
+    fleet 1's crossing the ranks) within the field tolerances, its replicas
+    equal."""
+    out, _, _ = two_ranks
+    for name, w in fleet_session(None, 2).items():
+        np.testing.assert_array_equal(out[f"session_2/{name}"], w, err_msg=name)
+    want = fleet_session(None, STRADDLE_GROUP)
+    got = results(out, f"session_{STRADDLE_GROUP}")
+    assert got.keys() == want.keys() and replicas_equal(got, STRADDLE_GROUP)
+    for name, w in want.items():
+        np.testing.assert_allclose(got[name], w, **FIELD_TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("field_freq", [1, 2])
+def test_a_rank_without_rows_joins_each_field_step_s_collective(monkeypatch, field_freq):
+    """Three ranks holding rows 0-4, none and 4-8 of one group of 8 (a
+    sub-fleet the middle rank holds none of): `join_grouped` on the middle
+    rank makes the collectives that `run_grouped` makes on rank 0, one per
+    field step of the same static schedule, on wires of the same shape."""
+    from nfopp_tpu_torch.solver import constrained
+
+    calls = []
+
+    def counted(wire, mesh):
+        calls.append((mesh.rank, tuple(wire.shape), wire.dtype))
+        return wire
+
+    monkeypatch.setattr(constrained, "sum_over_ranks", counted)
+    solver = ConstrainedSolver(CFG._replace(optimize_collision_model_freq=field_freq),
+                               circle_collision, device="cpu")
+    _, starts, goals, bounds, oracle = scene(4)
+    state = solver.init_state(torch.Generator().manual_seed(0), starts, goals, bounds, oracle,
+                              group_size=4)
+    spans, steps = ((0, 4), (4, 4), (4, 8)), 2 * CFG.reparametrize_trajectory_freq
+    rank = [solver.with_mesh(ProblemMesh(None, r, 3, torch.device("cpu"))).with_rows(spans)
+            for r in range(2)]
+    rank[0].run_grouped(state, oracle, steps, 8, torch.Generator().manual_seed(1))
+    rank[1].join_grouped(steps, 8, sum(x[0].numel() for x in tree_leaves(state.field_params)))
+    ran, joined = ([c[1:] for c in calls if c[0] == r] for r in range(2))
+    assert ran == joined and len(ran) == steps // field_freq
+
+
+@pytest.mark.parametrize("spans, group_size, crossing", [
+    (((0, 6), (6, 12)), 4, (1,)),
+    (((0, 6), (6, 12)), 12, (0,)),
+    (((0, 6), (6, 12)), 3, ()),
+    (((0, 4), (4, 6), (6, 8)), 2, ()),
+    (((0, 3), (3, 3), (3, 8)), 4, (0,)),
+])
+def test_crossing_groups_of_a_layout(spans, group_size, crossing):
+    """The groups whose rows several ranks hold (a rank may hold none), and
+    every rank's rows cut at the group boundaries."""
+    from nfopp_tpu_torch.solver.constrained import _crossing_groups, _segments
+
+    assert _crossing_groups(spans, group_size) == crossing
+    for lo, hi in spans:
+        segments = _segments(lo, hi - lo, group_size) if hi > lo else ()
+        assert [r for _, a, b in segments for r in range(a, b)] == list(range(hi - lo))
+        for group, a, b in segments:
+            assert all((lo + r) // group_size == group for r in range(a, b))
 
 
 if __name__ == "__main__":
@@ -505,5 +791,6 @@ if __name__ == "__main__":
     parser.add_argument("--init-file")
     parser.add_argument("--inputs")
     parser.add_argument("--state")
+    parser.add_argument("--straddle-state")
     parser.add_argument("--out")
     worker(parser.parse_args())
