@@ -30,15 +30,16 @@ CPU. `launches_per_step` is each kernel's count in the timed loop
 
 Quality: `evaluate_path`'s feasible fraction of the final paths. --feas-sweep
 N solves seeds seed+1 ... seed+N with the same programs. p50_batched_step_ms
-is 20 one-step calls and one synchronize (`bench.py:420-437`, a compiled
-`run(s, o, 1)`): one step is off the 10-step chunk, so each call replays the
-captured one-step program of the dynamic schedule, captured by a call before
-the timed window ("p50_step_path": "captured"; "eager" under --eager or on
-the CPU). --anytime solves the same states under the reference's
-early stop (`run_with_tracking`, `bench.py:440-510`), warmed on other states;
-where no problem is feasible its lengths are null (JSON has no NaN), and its
-`vs_baseline` divides by the reference's solves/s at the mean iterations run
-(the reference measured 1000 iterations per solve), not at 1000.
+is the median of 20 one-step calls, each ended by a synchronize
+(`bench.py:420-437` times a compiled `run(s, o, 1)`): one step is off the
+10-step chunk, so each call replays the captured one-step program of the
+dynamic schedule, captured by a call before the timed window
+("p50_step_path": "captured"; "eager" under --eager or on the CPU). --anytime
+solves the same states under the reference's early stop (`run_with_tracking`,
+`bench.py:440-510`), warmed on other states; where no problem is feasible its
+lengths are null (JSON has no NaN), and its `vs_baseline` divides by the
+reference's solves/s at the mean iterations run (the reference measured 1000
+iterations per solve), not at 1000.
 
 The default config fails below --feasibility-floor after printing its line
 with `feasibility_regression: true` (`bench.py:600-611`).
@@ -348,11 +349,13 @@ def main(argv=None) -> int:
     # program (captured by this first call), or the eager step
     out, _ = solver.run(s, oracle, 1, g)
     sync()
-    t1 = time.perf_counter()
+    step_s = []
     for _ in range(20):
+        t1 = time.perf_counter()
         out, _ = solver.run(out, oracle, 1, g)
-    sync()
-    p50_ms = (time.perf_counter() - t1) / 20 * 1e3
+        sync()
+        step_s.append(time.perf_counter() - t1)
+    p50_ms = float(np.median(step_s)) * 1e3
     p50_path = "captured" if captured else "eager"
     log(f"p50 batched step latency: {p50_ms:.2f} ms ({p50_path}); programs "
         f"{getattr(solver, 'aot_events', [])}")

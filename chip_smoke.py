@@ -3004,16 +3004,15 @@ def same_state(what: str, eager, captured) -> dict:
 
 def profile_orders(seed: int) -> dict:
     """Phase 14d: tools/profile_step.py eagerly and with --aot, in f32 and
-    bf16, at BATCH: host ms and device busy ms per step, the idle share,
-    kernels, launch calls and graph replays per step."""
+    bf16, at BATCH: host ms and device busy ms per step, kernels, launch
+    calls and graph replays per step."""
     import tempfile
     from types import SimpleNamespace
 
     from nfopp_tpu_torch.tools import profile_step
 
-    keys = ("host_ms_per_step", "device_busy_ms_per_step", "idle_share_vs_host_step",
-            "kernels_per_step", "launch_calls_per_step", "graph_replays_per_step",
-            "port_kernel_launches_per_step")
+    keys = ("host_ms_per_step", "device_busy_ms_per_step", "kernels_per_step",
+            "launch_calls_per_step", "graph_replays_per_step", "port_kernel_launches_per_step")
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         for bf16, aot in itertools.product((False, True), (False, True)):
@@ -3920,10 +3919,9 @@ def dynamic_schedule(device, seed: int) -> tuple[dict, dict, dict]:
             f"{order} f32", solver, state, car, seed + 1, path, f"dynamic-{order}", ORDER_STEPS)
         add(counted)
 
-    keys = ("host_ms_per_step", "device_busy_ms_per_step", "idle_share_vs_host_step",
-            "kernels_per_step", "launch_calls_per_step", "graph_replays_per_step",
-            "host_launch_ms_per_step", "host_launch_ms_per_step_by_call",
-            "port_kernel_launches_per_step", "aot_events")
+    keys = ("host_ms_per_step", "device_busy_ms_per_step", "kernels_per_step",
+            "launch_calls_per_step", "graph_replays_per_step", "host_launch_ms_per_step",
+            "host_launch_ms_per_step_by_call", "port_kernel_launches_per_step", "aot_events")
     with tempfile.TemporaryDirectory() as tmp:
         for bf16 in (False, True):
             result = profile_step.profile(SimpleNamespace(

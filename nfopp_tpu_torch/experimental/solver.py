@@ -49,6 +49,7 @@ from ..solver.constrained import (
 )
 from ..solver.field import sample_field_points
 from ..solver.schedule import scan_chunked
+from ..utils import profiling
 from .merged_step import merged_field_and_trajectory
 
 __all__ = ["ExperimentalConstrainedSolver"]
@@ -178,11 +179,13 @@ class ExperimentalConstrainedSolver(ConstrainedSolver):
                 "run_batch runs on one device: JAX runs it only on one (bench.py:275) and its "
                 "BatchPlanner has no route to it; on a mesh of ranks use run or run_grouped"
             )
-        if self.aot_prefix is None:
-            return self._batch_chunks(states, oracle_params, num_steps, noise,
-                                      problems_per_program)
-        return self._run_program(
-            f"batch-b{states.start.shape[0]}-p{problems_per_program}",
-            lambda s, o, n, g: self._batch_chunks(s, o, n, g, problems_per_program),
-            freq, states, oracle_params, num_steps, noise, key_parts=(problems_per_program,),
-        )
+        with profiling.span("run", steps=num_steps, batch=states.start.shape[0],
+                            schedule="static", problems_per_program=problems_per_program):
+            if self.aot_prefix is None:
+                return self._batch_chunks(states, oracle_params, num_steps, noise,
+                                          problems_per_program)
+            return self._run_program(
+                f"batch-b{states.start.shape[0]}-p{problems_per_program}",
+                lambda s, o, n, g: self._batch_chunks(s, o, n, g, problems_per_program),
+                freq, states, oracle_params, num_steps, noise, key_parts=(problems_per_program,),
+            )

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..utils import profiling
 from ..utils.device import check_device
 from ..utils.tree import tree_leaves, tree_map
 
@@ -219,11 +220,13 @@ def _flag_sum(flag: bool, mesh: ProblemMesh) -> int:
 
 def any_over_problems(flags: torch.Tensor, mesh: ProblemMesh | None) -> bool:
     """Whether any problem of the global batch has its flag set (one host
-    sync, one small all_reduce): a host decision every rank takes alike."""
-    local = bool(flags.any())
-    if mesh is None or not mesh.distributed:
-        return local
-    return _flag_sum(local, mesh) > 0
+    sync, one small all_reduce): a host decision every rank takes alike.
+    The run loop's one host decision: a `sync` span."""
+    with profiling.span("sync"):
+        local = bool(flags.any())
+        if mesh is None or not mesh.distributed:
+            return local
+        return _flag_sum(local, mesh) > 0
 
 
 def all_over_problems(flags: torch.Tensor, mesh: ProblemMesh | None) -> bool:

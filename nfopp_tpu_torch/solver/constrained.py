@@ -58,6 +58,7 @@ from ..ops.reparametrize import (
 )
 from ..ops.sampling import GeneratorNoise, ShardNoise, uniform_box_points
 from ..parallel.mesh import all_over_problems, sum_over_ranks
+from ..utils import profiling
 from ..utils.device import check_device
 from ..utils.tree import tree_copy_, tree_leaves, tree_map, tree_where
 from .adam import AdamState, adam_init, adam_update
@@ -543,16 +544,21 @@ class _FieldSolver:
         schedule replays the captured chunk program and the dynamic one the
         captured one-step program. Reading step_count costs one device sync
         per call, outside any program; on a mesh the ranks agree on the
-        schedule (one small all_reduce).
+        schedule (one small all_reduce). The call is a `run` span
+        (`utils.profiling`), the read a `sync` span inside it.
         """
         freq = self.config.reparametrize_trajectory_freq
-        aligned = freq > 1 and all_over_problems(state.step_count % freq == 0, self.mesh)
-        if aligned and num_steps % freq == 0:
-            return self._static_run(state, oracle_params, num_steps, noise)
-        if self.aot_prefix is None:
-            return self._steps(state, oracle_params, num_steps, noise)
-        return self._run_program(f"step-b{state.start.shape[0]}", self._steps, 1, state,
-                                 oracle_params, num_steps, noise)
+        with profiling.span("run", steps=num_steps, batch=state.start.shape[0]) as span:
+            aligned = freq > 1 and all_over_problems(state.step_count % freq == 0, self.mesh)
+            static = aligned and num_steps % freq == 0
+            if span is not None:
+                span.attrs["schedule"] = "static" if static else "dynamic"
+            if static:
+                return self._static_run(state, oracle_params, num_steps, noise)
+            if self.aot_prefix is None:
+                return self._steps(state, oracle_params, num_steps, noise)
+            return self._run_program(f"step-b{state.start.shape[0]}", self._steps, 1, state,
+                                     oracle_params, num_steps, noise)
 
     def _steps(self, state, oracle_params: Any, num_steps: int, noise):
         """`num_steps` steps of the dynamic schedule (`step`); aux stacked
@@ -639,16 +645,20 @@ class _FieldSolver:
         listed once per key in `aot_events`. The key holds the class, the
         oracle, the config, the step order, the precision, the mesh layout
         (rank, size, `with_rows` spans), the arguments' shapes and
-        `key_parts`."""
+        `key_parts`. The key's building and the store's lookup (or the
+        capture) are a `program` span."""
         from ..utils.aot import aot_or_compile, shape_digest
 
         cfg = self.config
         layout = None if self.mesh is None else (self.mesh.rank, self.mesh.size, self.spans)
-        program = aot_or_compile(
-            f"{self.aot_prefix}-{name}", body, args, type(self).__name__, repr(self.oracle_fn),
-            cfg, self._step_order(), cfg.onf.compute_dtype, layout, *map(shape_digest, args),
-            *key_parts,
-        )
+        with profiling.span("program", program=f"{self.aot_prefix}-{name}") as span:
+            program = aot_or_compile(
+                f"{self.aot_prefix}-{name}", body, args, type(self).__name__,
+                repr(self.oracle_fn), cfg, self._step_order(), cfg.onf.compute_dtype, layout,
+                *map(shape_digest, args), *key_parts,
+            )
+            if span is not None:
+                span.attrs["loaded"] = program.loaded
         if program.key not in self._aot_keys:
             self._aot_keys.add(program.key)
             event = {"program": name, "loaded": program.loaded,
@@ -669,7 +679,8 @@ class _FieldSolver:
         into the input's own tensors, whose buffers then carry the state to
         the next replay. The key holds the group size, the span and
         `key_parts` besides `_program`'s. Each replay's aux is copied into
-        [B, num_steps] buffers."""
+        [B, num_steps] buffers. Each program call is a `replay` span, the
+        output state's clone a `run.outputs` span."""
         batch = state.start.shape[0]
         on_card = self.device.type == "cuda"
         if on_card:
@@ -685,11 +696,13 @@ class _FieldSolver:
                                 *key_parts)
         aux = StepAux(*(torch.empty((batch, num_steps), device=self.device) for _ in range(2)))
         for c in range(num_steps // span):
-            state, replay_aux = program(state, oracle_params, noise)
+            with profiling.span("replay"):
+                state, replay_aux = program(state, oracle_params, noise)
             for buf, a in zip(aux, replay_aux):
                 buf[:, c * span:(c + 1) * span] = a
         # on the card the state is the program's buffers, which its next replay overwrites
-        return (tree_map(torch.clone, state) if on_card else state), aux
+        with profiling.span("run.outputs"):
+            return (tree_map(torch.clone, state) if on_card else state), aux
 
     # ------------------------------------------------- live problem updates
 
@@ -759,37 +772,40 @@ class ConstrainedSolver(_FieldSolver):
         equal bounds and oracle leaves within each group. On a mesh the
         arguments are this rank's rows, every draw is cut from the global
         batch's block, and a group may lie anywhere across the ranks' rows
-        (group_size dividing the global batch).
+        (group_size dividing the global batch). An `init` span, its
+        pretraining a `pretrain` span.
         """
-        cfg = self.config
-        start, goal, bounds = self._tensor(start), self._tensor(goal), self._tensor(bounds)
-        batch = start.shape[0]
-        if group_size != 1:
-            self._check_group_size(batch, group_size)
-            _check_groups(batch, group_size, bounds, oracle_params, self._first_row(batch))
-        trajectory = (self.initial_trajectory(start, goal) if trajectory is None
-                      else self._tensor(trajectory))
-        field_params = self._init_field(generator, batch, group_size)
-        u = self._rand(generator, batch, (cfg.collision_point_count, 3))
-        n = cfg.trajectory_length
-        state = ConstrainedState(
-            trajectory=trajectory,
-            field_params=field_params,
-            field_opt_state=adam_init(field_params),
-            traj_opt_state=adam_init(trajectory),
-            constraint_multipliers=torch.zeros((batch, n + 1), device=self.device),
-            collision_multipliers=torch.zeros((batch, n), device=self.device),
-            buffer_points=uniform_box_points(u, bounds, with_angle=True),
-            buffer_ages=torch.zeros((batch, cfg.collision_point_count), device=self.device),
-            prev_trajectory=trajectory,
-            start=start,
-            goal=goal,
-            bounds=bounds,
-            step_count=torch.zeros((batch,), dtype=torch.int32, device=self.device),
-        )
-        if cfg.init_collision_iteration > 0:
-            state = self._pretrain_field(state, oracle_params, generator, group_size)
-        return state
+        with profiling.span("init", batch=len(start)):
+            cfg = self.config
+            start, goal, bounds = self._tensor(start), self._tensor(goal), self._tensor(bounds)
+            batch = start.shape[0]
+            if group_size != 1:
+                self._check_group_size(batch, group_size)
+                _check_groups(batch, group_size, bounds, oracle_params, self._first_row(batch))
+            trajectory = (self.initial_trajectory(start, goal) if trajectory is None
+                          else self._tensor(trajectory))
+            field_params = self._init_field(generator, batch, group_size)
+            u = self._rand(generator, batch, (cfg.collision_point_count, 3))
+            n = cfg.trajectory_length
+            state = ConstrainedState(
+                trajectory=trajectory,
+                field_params=field_params,
+                field_opt_state=adam_init(field_params),
+                traj_opt_state=adam_init(trajectory),
+                constraint_multipliers=torch.zeros((batch, n + 1), device=self.device),
+                collision_multipliers=torch.zeros((batch, n), device=self.device),
+                buffer_points=uniform_box_points(u, bounds, with_angle=True),
+                buffer_ages=torch.zeros((batch, cfg.collision_point_count), device=self.device),
+                prev_trajectory=trajectory,
+                start=start,
+                goal=goal,
+                bounds=bounds,
+                step_count=torch.zeros((batch,), dtype=torch.int32, device=self.device),
+            )
+            if cfg.init_collision_iteration > 0:
+                with profiling.span("pretrain"):
+                    state = self._pretrain_field(state, oracle_params, generator, group_size)
+            return state
 
     # ------------------------------------------------------- trajectory loss
 
@@ -918,7 +934,9 @@ class ConstrainedSolver(_FieldSolver):
         _check_chunkable("run_grouped", num_steps, freq)
         self._check_group_size(states.trajectory.shape[0], group_size)
         self._check_static_field_stride("shared-field mode")
-        return self._static_run(states, oracle_params, num_steps, noise, group_size)
+        with profiling.span("run", steps=num_steps, batch=states.trajectory.shape[0],
+                            schedule="static", group_size=group_size):
+            return self._static_run(states, oracle_params, num_steps, noise, group_size)
 
     # ------------------------------------------------- live problem updates
 

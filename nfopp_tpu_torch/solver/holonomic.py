@@ -22,6 +22,7 @@ from ..ops.losses import distance_loss
 from ..ops.math import linspace
 from ..ops.reparametrize import reparametrize_xy
 from ..ops.sampling import random_intermediate_positions, uniform_box_points
+from ..utils import profiling
 from ..utils.device import check_device
 from .adam import AdamState, adam_init
 from .config import SolverConfig
@@ -77,30 +78,33 @@ class HolonomicSolver(_FieldSolver):
         """Fresh state for a batch of problems: start/goal [B, 2], bounds [B, 4];
         field init, the buffer's uniform pre-fill and any pretraining draw
         from `generator`, in that order. On a copy made by `with_aot` the
-        pretraining replays its captured iteration (`_pretrain_field`)."""
-        cfg = self.config
-        start, goal, bounds = self._tensor(start), self._tensor(goal), self._tensor(bounds)
-        batch = start.shape[0]
-        trajectory = (self.initial_trajectory(start, goal) if trajectory is None
-                      else self._tensor(trajectory))
-        field_params = self._init_field(generator, batch)
-        u = self._rand(generator, batch, (cfg.collision_point_count, 2))
-        state = HolonomicState(
-            trajectory=trajectory,
-            field_params=field_params,
-            field_opt_state=adam_init(field_params),
-            traj_opt_state=adam_init(trajectory),
-            buffer_points=uniform_box_points(u, bounds, with_angle=False),
-            buffer_ages=torch.zeros((batch, cfg.collision_point_count), device=self.device),
-            prev_trajectory=trajectory,
-            start=start,
-            goal=goal,
-            bounds=bounds,
-            step_count=torch.zeros((batch,), dtype=torch.int32, device=self.device),
-        )
-        if cfg.init_collision_iteration > 0:
-            state = self._pretrain_field(state, oracle_params, generator)
-        return state
+        pretraining replays its captured iteration (`_pretrain_field`). An
+        `init` span, its pretraining a `pretrain` span."""
+        with profiling.span("init", batch=len(start)):
+            cfg = self.config
+            start, goal, bounds = self._tensor(start), self._tensor(goal), self._tensor(bounds)
+            batch = start.shape[0]
+            trajectory = (self.initial_trajectory(start, goal) if trajectory is None
+                          else self._tensor(trajectory))
+            field_params = self._init_field(generator, batch)
+            u = self._rand(generator, batch, (cfg.collision_point_count, 2))
+            state = HolonomicState(
+                trajectory=trajectory,
+                field_params=field_params,
+                field_opt_state=adam_init(field_params),
+                traj_opt_state=adam_init(trajectory),
+                buffer_points=uniform_box_points(u, bounds, with_angle=False),
+                buffer_ages=torch.zeros((batch, cfg.collision_point_count), device=self.device),
+                prev_trajectory=trajectory,
+                start=start,
+                goal=goal,
+                bounds=bounds,
+                step_count=torch.zeros((batch,), dtype=torch.int32, device=self.device),
+            )
+            if cfg.init_collision_iteration > 0:
+                with profiling.span("pretrain"):
+                    state = self._pretrain_field(state, oracle_params, generator)
+            return state
 
     def trajectory_loss(self, trajectory, field_params, start, goal, t) -> torch.Tensor:
         """distance + collision_weight * sum softplus(field) at one point per

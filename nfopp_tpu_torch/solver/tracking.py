@@ -26,6 +26,7 @@ import torch
 
 from ..ops.math import dense_path
 from ..parallel.mesh import any_over_problems
+from ..utils import profiling
 from ..utils.tree import tree_where
 
 __all__ = [
@@ -65,12 +66,14 @@ def evaluate_path(
     oracle_fn, oracle_params: Any, full_path: torch.Tensor, samples_per_segment: int = 5
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(collides [B], xy length [B]) of paths [B, M, d]: interpolate
-    `samples_per_segment` poses per segment, ask the oracle, measure."""
-    dense = dense_path(full_path, samples_per_segment)
-    collides = torch.any(oracle_fn(oracle_params, dense), dim=1)
-    seg = full_path[:, 1:, :2] - full_path[:, :-1, :2]
-    length = torch.sum(torch.sqrt(torch.sum(seg * seg, dim=-1)), dim=1)
-    return collides, length
+    `samples_per_segment` poses per segment, ask the oracle, measure (an
+    `evaluate` span)."""
+    with profiling.span("evaluate", batch=full_path.shape[0]):
+        dense = dense_path(full_path, samples_per_segment)
+        collides = torch.any(oracle_fn(oracle_params, dense), dim=1)
+        seg = full_path[:, 1:, :2] - full_path[:, :-1, :2]
+        length = torch.sum(torch.sqrt(torch.sum(seg * seg, dim=-1)), dim=1)
+        return collides, length
 
 
 def run_with_tracking(

@@ -12,11 +12,21 @@ is not a multiple of 10, one per step of the dynamic schedule):
 `--warmup` steps, then
 `--steps` steps timed on the host clock, then the same number of steps under
 torch.profiler. The trace's kernel events give the device's busy time per
-step (kernels on the one stream do not overlap), its idle share, and the
-time and launches per step of each kernel, beside the port's own kernels'
-launches per step (`kernels.LAUNCHES`, which count through replays) and the
-graph replays per step. Prints one JSON object; the Chrome trace goes to
---trace.
+step (kernels on the one stream do not overlap), its idle share within the
+profiled window, and the time and launches per step of each kernel, beside
+the port's own kernels' launches per step (`kernels.LAUNCHES`, which count
+through replays) and the program's `replay` spans per step
+(`utils.profiling`: one per call of a captured program). Prints one JSON
+object; the Chrome trace goes to --trace.
+
+Reading the trace: the program's spans are ranges named
+`nfopp_tpu_torch.<span>` on the CPU rows, on the device rows' clock. A gap
+between kernels on the device row is explained by the innermost range the
+host was in at that time: `nfopp_tpu_torch.sync` (the host waited for the
+card to drain, then had nothing queued), `nfopp_tpu_torch.program` (the
+program's key and lookup, or a capture), `nfopp_tpu_torch.replay` (the
+copy-in and the graph's launch), `nfopp_tpu_torch.run.outputs` (the output
+state's clone), or no range at all (this tool's own host work).
 
     python3 -m nfopp_tpu_torch.tools.profile_step --trace profiles/torch_step_trace.json
     python3 -m nfopp_tpu_torch.tools.profile_step --bf16 --trace profiles/torch_step_trace_bf16.json
@@ -39,6 +49,7 @@ import torch
 from .. import kernels as port_kernels
 from ..experimental import ExperimentalConstrainedSolver
 from ..solver import ConstrainedSolver, run_planner_config
+from ..utils import profiling
 from ..utils.aot import aot_or_compile
 from ..worlds import rectangle_collision
 from .scene import car_world, card_line
@@ -141,11 +152,13 @@ def profile(args) -> dict:
     port_launches = {name: n / args.steps for name, n in port_kernels.LAUNCHES.items() if n}
 
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    profiling.clear_spans()
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
         state, _ = solver.run(state, oracle, args.steps, g)
         torch.cuda.synchronize()
         profiled_ms = (time.perf_counter() - t0) / args.steps * 1e3
+    replays = [s for s in profiling.spans() if s.name == "replay"]
     events = trace_events(prof, args.trace)
     kernels = [e for e in events if e.get("cat") == "kernel"]
     if not kernels:
@@ -158,7 +171,6 @@ def profile(args) -> dict:
     window_us = max(e["ts"] + e["dur"] for e in kernels) - min(e["ts"] for e in kernels)
     launches = [e for e in events if e.get("cat") == "cuda_runtime"
                 and "Launch" in e.get("name", "")]
-    replays = [e for e in launches if "GraphLaunch" in e["name"]]
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     result = {
         "card": card_line(),
@@ -171,10 +183,7 @@ def profile(args) -> dict:
         "profiled_ms_per_step": profiled_ms,
         "device_busy_ms_per_step": busy_us / 1e3 / args.steps,
         "device_window_ms_per_step": window_us / 1e3 / args.steps,
-        # the profiled window is stretched by the profiler's own overhead; the
-        # busy time against the unprofiled step is the better idle estimate
         "idle_share_profiled_window": 1.0 - busy_us / window_us,
-        "idle_share_vs_host_step": 1.0 - busy_us / 1e3 / args.steps / host_ms,
         "kernels_per_step": len(kernels) / args.steps,
         "port_kernel_launches_per_step": port_launches,
         "launch_calls_per_step": len(launches) / args.steps,

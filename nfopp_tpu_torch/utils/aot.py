@@ -69,6 +69,7 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
+from . import profiling
 from .tree import tree_leaves, tree_map
 
 __all__ = [
@@ -254,7 +255,8 @@ def aot_or_compile(
         if verbose:
             print(f"program {name} taken from the store", file=sys.stderr, flush=True)
         return program
-    program = AotProgram(_capture(fn, example_args, device), False, 0.0, key)
+    with profiling.span("capture", program=name):
+        program = AotProgram(_capture(fn, example_args, device), False, 0.0, key)
     program = program._replace(seconds=time.perf_counter() - t0)
     if enabled:
         _PROGRAMS[key] = program
