@@ -16,6 +16,11 @@ one completes. The traffic file sets:
                     how many batches the check follows, drawn from the seed
                     among the window's first `sample_from_first`
     path_off_m      the gap past which a followed path counts as off
+    counted_batches the batches whose final paths `attempted`, `failed` and
+                    `feasible_frac` count: the window's first, drawn from
+                    the seed alone, so that every run of a seed counts the
+                    same problems however many batches its window holds (a
+                    run that completes fewer counts those it completed)
     trace           the traced slice: from [batch, call] to [batch, call]
 """
 from __future__ import annotations
@@ -135,13 +140,19 @@ class Driver:
                                             for full, _ in self.batches])
         return self._ref_collides
 
+    def counted_collides(self) -> torch.Tensor:
+        """The reference's collisions of the counted batches' final paths."""
+        t = self.traffic
+        return self._reference_collides()[:t["counted_batches"] * t["problems"]]
+
     def attempted_failed(self) -> tuple[int, int]:
-        collides = self._reference_collides()
+        collides = self.counted_collides()
         return int(collides.numel()), int(collides.sum())
 
     def end_to_end(self) -> dict:
         attempted, failed = self.attempted_failed()
-        return {"solves_per_s": attempted / self.elapsed,
+        solved = len(self.batches) * self.traffic["problems"]  # every batch of the window
+        return {"solves_per_s": solved / self.elapsed,
                 "feasible_frac": 100.0 * (attempted - failed) / attempted}
 
     def counters(self) -> dict:
