@@ -17,11 +17,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
      launches of each kernel giving identical bits; then every kernel on the
      other field configurations at small shapes, in f32 and bf16, and the
      forward and collision-backward kernels at the widest fields they take;
+     then the optimizer's kernel (kernels/adam.py) bit for bit against its
+     plain version over 1000 successive updates of the car field (B=256)
+     and of the trajectory, and over 20 of the field at B=255 with its
+     inputs one float off 16-byte alignment, timed as captured launches
+     beside its bytes bound;
   4. main path: the batched car-scene solve (run_planner_config, f32,
      B=256 x 1000 steps, seeded) through the port's entry points, after a
      one-step CUDA-vs-CPU agreement check on 4 problems (then 100 more steps
      of both, whose drift is logged, not held); each of its four kernels must
-     launch once per step, and the feasible fraction must reach 0.98;
+     launch once per step, and the feasible fraction must reach 0.98. On
+     this path and every other one below the Adam kernel launches twice per
+     step (the field's update and the trajectory's, one launch per tree) and
+     once per pretraining iteration, counted with the path's kernels;
   5. bf16 batch path: the same solve in bf16 through the batch-explicit
      ExperimentalConstrainedSolver.run_batch (P=8), after a one-step
      CUDA-vs-CPU agreement check of that path on 4 problems; each of its
@@ -125,7 +133,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      (a) phases 4 and 6 again, f32 and bf16, B=256 x 1000 steps, same seed
      and inputs, the program captured before the timed window; each kernel
      of the path counted 1000 times through the replays, feasible >= 0.98,
-     and the final state bit-identical to the eager phase's; (b) phase 8's
+     and the final state bit-identical to the eager phase's; then the f32
+     batch again as a program whose Adam is PyTorch's elementwise kernels
+     (`plain_adam`), its final state bit-identical to the kernel's; (b) phase 8's
      grouped path through BatchPlanner(aot_prefix=...), held the same way;
      (c) phase 11g's fleet service with replan_latency_torch's --aot, its
      cycle p50 / p99 beside 11g's; (d) tools/profile_step.py eager and with
@@ -226,6 +236,7 @@ multi-problem kernels.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import itertools
 import json
@@ -325,6 +336,16 @@ FORWARD_WIDEST = ((118, 10, ("float32", "bfloat16")), (120, 10, ("float32",)),
 MAIN_PATH = ("onf_forward", "field_grad", "collision_fwd", "collision_bwd")
 BATCH_PATH = ("onf_multi", "field_grad_multi", "collision_fwd_bf16", "collision_bwd_bf16")
 MAIN_PATH_BF16 = ("onf_forward_bf16", "field_grad_bf16", "collision_fwd_bf16", "collision_bwd_bf16")
+# the optimizer's kernel (kernels/adam.py), f32 on every path and in both
+# precisions: one launch per field update and one per trajectory update (two
+# per step: every path here trains its field every step), one per
+# pretraining iteration
+ADAM = "adam"
+ADAM_PER_STEP = 2
+ADAM_UPDATES = 1000  # successive updates of phase 3's chains, a solve's
+ADAM_OFFSET_UPDATES = 20  # of the chain whose first inputs sit one float off 16 bytes
+# the kernels whose launches the summary line adds up over the phases
+COUNTED = MAIN_PATH + (ADAM,)
 # each bf16 kernel computes its f32 counterpart's function
 COUNTERPART = {**dict(zip(BATCH_PATH, MAIN_PATH)), **dict(zip(MAIN_PATH_BF16, MAIN_PATH))}
 REPLACES = {
@@ -338,6 +359,7 @@ REPLACES = {
     "collision_bwd_bf16": "nfopp_tpu/experimental/pallas/collision_terms.py:99",
     "onf_forward_bf16": "nfopp_tpu/experimental/pallas/onf_fused.py:73",
     "field_grad_bf16": "nfopp_tpu/experimental/pallas/field_grad.py:35",
+    ADAM: "none (XLA fuses optax's update)",
 }
 # the file that holds each kernel's code (the ONF logits and field-gradient
 # kernels are templates in headers, instantiated by onf_forward.cu /
@@ -353,6 +375,7 @@ SOURCES = {
     "collision_bwd_bf16": "nfopp_tpu_torch/kernels/csrc/collision_bwd.cu",
     "onf_forward_bf16": "nfopp_tpu_torch/kernels/csrc/forward.cuh",
     "field_grad_bf16": "nfopp_tpu_torch/kernels/csrc/field_grad.cuh",
+    ADAM: "nfopp_tpu_torch/kernels/csrc/adam.cu",
 }
 
 
@@ -963,6 +986,142 @@ def check_kernels(device, peaks, seed: int, batch: int) -> dict:
     return results
 
 
+@contextlib.contextmanager
+def plain_adam():
+    """Inside, every `solver.adam_update` runs the plain version of the Adam
+    kernel (`kernels.adam_leaves_plain`) on the card: the plain-Adam
+    program, PyTorch's 14 elementwise kernels per leaf."""
+    from nfopp_tpu_torch.kernels import adam_leaves_plain
+    from nfopp_tpu_torch.solver import adam as solver_adam
+
+    kernel = solver_adam.adam_leaves
+    solver_adam.adam_leaves = adam_leaves_plain
+    try:
+        yield
+    finally:
+        solver_adam.adam_leaves = kernel
+
+
+def adam_chain(what: str, params, rates: tuple, eps: float, updates: int, seed: int,
+               layout=None) -> int:
+    """`updates` successive Adam updates of `params` (rows starting at step
+    counts 0-6) by fresh gradients of changing scale (1e-2, 1, 1e-6, and
+    zero every 100th update), through the kernel and, from the same start,
+    through the plain version: every leaf of the two chains' parameters and
+    states equal bit for bit after every update. `layout` places the first
+    update's inputs and every gradient (the offset chain). Returns the number
+    of updates held."""
+    import torch
+
+    from nfopp_tpu_torch.solver import adam_init, adam_update
+    from nfopp_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    lr, (b1, b2) = rates
+    place = layout or (lambda t: t)
+    device = tree_leaves(params)[0].device
+    g = torch.Generator(device=device).manual_seed(seed)
+    state = adam_init(params)
+    rows = torch.arange(state.count.shape[0], dtype=torch.int32, device=device)
+    start = tree_map(place, (tree_map(torch.clone, params), state._replace(count=rows % 7)))
+    chains = {"kernel": start, "plain": start}
+    differ = torch.zeros((), dtype=torch.int64, device=device)
+    for i in range(updates):
+        scale = 0.0 if i % 100 == 99 else (1e-2, 1.0, 1e-6)[i % 3]
+        grads = tree_map(lambda p: place(scale * torch.randn(p.shape, generator=g, device=device)),
+                         params)
+        for name, (p, s) in chains.items():
+            with plain_adam() if name == "plain" else contextlib.nullcontext():
+                chains[name] = adam_update(grads, s, p, lr, b1, b2, eps)
+        for a, b in zip(tree_leaves(chains["kernel"]), tree_leaves(chains["plain"])):
+            differ += (a.view(torch.int32) != b.view(torch.int32)).sum()
+    if int(differ):
+        raise AssertionError(f"{what}: the Adam kernel differs from its plain version in "
+                             f"{int(differ)} elements over {updates} updates")
+    return updates
+
+
+def graph_ms(fn, calls: int = 10) -> float:
+    """ms per call of `fn`, captured `calls` times in a row into one CUDA
+    graph and replayed (`time_ms`): the device's time, as a captured step
+    runs it, without the host's time to launch it."""
+    import torch
+
+    from nfopp_tpu_torch.tools.scene import time_ms
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return time_ms(graph.replay) / calls
+
+
+def check_adam(device, peaks, seed: int, batch: int) -> dict:
+    """Phase 3, the optimizer: the Adam kernel bit for bit against its plain
+    version over ADAM_UPDATES successive updates of the car field (B
+    problems, its 9 leaves) and of the trajectory [B, N, 3], each at its
+    solver's rates; the field again at B - 1 rows with its first inputs and
+    every gradient one float off 16-byte alignment (element-wise quads, rows
+    straddling quads, a short last quad); two launches giving identical bits;
+    each tree timed as captured launches (`graph_ms`, ms) and eagerly, beside
+    its plain version and its bound, 28 bytes per element (g, m, v and p
+    read, m', v' and p' written) over the memory rate."""
+    import torch
+
+    from nfopp_tpu_torch import kernels
+    from nfopp_tpu_torch.models import init_onf_params
+    from nfopp_tpu_torch.solver import run_planner_config
+    from nfopp_tpu_torch.tools.scene import time_ms
+    from nfopp_tpu_torch.utils.device import device_constant
+    from nfopp_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = run_planner_config()
+    g = torch.Generator(device=device).manual_seed(seed + 3)
+    trees = {"field": (init_onf_params(g, cfg.onf, batch, device),
+                       (cfg.collision_lr, cfg.collision_betas)),
+             "trajectory": (torch.randn((batch, cfg.trajectory_length, 3), generator=g,
+                                        device=device),
+                            (cfg.trajectory_lr, cfg.trajectory_betas))}
+
+    def off_by_one_float(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    cases = {}
+    for name, (params, rates) in trees.items():
+        held = adam_chain(f"adam {name}", params, rates, cfg.adam_eps, ADAM_UPDATES, seed + 4)
+        lr, (b1, b2) = rates
+        grads = tree_map(lambda p: 1e-2 * torch.randn(p.shape, generator=g, device=device), params)
+        moments = tree_map(lambda p: 1e-2 * torch.randn(p.shape, generator=g, device=device),
+                           (params, params))
+        mu, nu = moments[0], tree_map(lambda t: t * t, moments[1])
+        steps = (1 + torch.arange(batch, device=device) % 7).to(torch.float32)
+        bc1, bc2 = (1 - torch.pow(device_constant(b, device), steps) for b in (b1, b2))
+        args = (grads, mu, nu, params, bc1, bc2, lr, b1, b2, cfg.adam_eps)
+        same_bits(f"adam {name}", lambda: kernels.adam_leaves(*args))
+        elements = sum(p.numel() for p in tree_leaves(params))
+        cases[name] = {
+            "leaves": len(tree_leaves(params)), "elements": elements, "updates_held": held,
+            "ms": graph_ms(lambda: kernels.adam_leaves(*args)),
+            "plain_ms": graph_ms(lambda: kernels.adam_leaves_plain(*args)),
+            "eager_ms": time_ms(lambda: kernels.adam_leaves(*args)),
+            "plain_eager_ms": time_ms(lambda: kernels.adam_leaves_plain(*args)),
+            "bound_ms": 28 * elements / peaks[3] * 1e3, "bound_by": "bytes",
+        }
+        log(f"kernel adam ({name}): {cases[name]}")
+    params = tree_map(lambda t: t[1:].contiguous(), trees["field"][0])
+    cases["field"]["offset_updates_held"] = adam_chain(
+        "adam field, one float off", params, trees["field"][1], cfg.adam_eps,
+        ADAM_OFFSET_UPDATES, seed + 5, layout=off_by_one_float)
+    return {ADAM: {"max_abs_err": 0.0, **cases["field"], "trajectory": cases["trajectory"]}}
+
+
 def check_batch_kernels(device, peaks, seed: int, batch: int) -> tuple[dict, dict]:
     """Phase 3, bf16 batch path: the multi-problem kernels (f32 and bf16) and
     the collision kernels' bf16 mode against their plain versions at the
@@ -1320,7 +1479,8 @@ def bf16_config(cfg):
     return cfg._replace(onf=cfg.onf._replace(compute_dtype="bfloat16"))
 
 
-def solve(device, seed: int, batch: int, steps: int, path: tuple, aot: str | None = None):
+def solve(device, seed: int, batch: int, steps: int, path: tuple, aot: str | None = None,
+          adam_per_step: int = ADAM_PER_STEP):
     """The B x steps car-scene solve through the kernels of `path`: the f32 or
     bf16 main path (ConstrainedSolver.run) or the bf16 batch path (run_batch,
     P=8). Each kernel of `path` must launch once per step and no other kernel
@@ -1362,7 +1522,7 @@ def solve(device, seed: int, batch: int, steps: int, path: tuple, aot: str | Non
     seconds = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
 
-    check_launches(launches, path, steps, "the solve")
+    check_launches(launches, path, steps, "the solve", adam_per_step=adam_per_step)
     path_xy = solver.full_trajectory(state)
     check_finite_paths(path_xy, (batch, solver.config.trajectory_length + 2, 3), "solve")
     if not torch.isfinite(aux.field_loss).all() or not torch.isfinite(aux.trajectory_loss).all():
@@ -1385,14 +1545,28 @@ def solve(device, seed: int, batch: int, steps: int, path: tuple, aot: str | Non
 
 
 def check_launches(launches: dict, path: tuple, steps: int, what: str,
-                   extra: dict | None = None) -> None:
+                   extra: dict | None = None, adam_per_step: int = ADAM_PER_STEP) -> None:
     """Each kernel of `path` launched once per step (`steps` times) and
-    extra[name] times more (pretraining), every other kernel never."""
+    extra[name] times more (pretraining: `pretrain_launches`), the Adam
+    kernel `adam_per_step` times per step (the field's and the trajectory's
+    update, on every path) and extra["adam"] times more, every other kernel
+    never."""
     extra = extra or {}
     for name, count in launches.items():
-        if count != (steps + extra.get(name, 0) if name in path else 0):
+        if name == ADAM:
+            want = adam_per_step * steps + extra.get(ADAM, 0)
+        else:
+            want = steps + extra.get(name, 0) if name in path else 0
+        if count != want:
             raise AssertionError(f"kernel {name} launched {count} times in {steps} steps of "
                                  f"{what} (path {path}, besides {extra})")
+
+
+def pretrain_launches(iterations: int) -> dict:
+    """`check_launches`' extra launches of `iterations` pretraining
+    iterations: one of the field-gradient kernel and one of the Adam kernel
+    each."""
+    return {"field_grad": iterations, ADAM: iterations}
 
 
 def check_finite_paths(paths, shape: tuple, what: str) -> None:
@@ -1752,7 +1926,7 @@ def holonomic_solve(device, seed: int, batch: int, steps: int):
         "us_per_step_per_problem": per_problem_us(seconds, steps, batch),
         "feasible_fraction": feasible, "feasible_count": int((~collides).sum()),
         "mean_length_feasible": float(length[~collides].mean()) if feasible > 0 else None,
-        "launches": {name: launches[name] for name in MAIN_PATH},
+        "launches": {name: launches[name] for name in COUNTED},
         "kernels_held": held,
     }
 
@@ -1982,15 +2156,20 @@ def suite_solve(device, seed: int) -> tuple[dict, dict, list, object]:
 
     def check_suite_launches(what, probe, launches):
         """Each f32 kernel once per step of each solve, kernel 2 also once
-        per pretraining iteration of each init."""
+        per pretraining iteration of each init; the Adam kernel twice per
+        step and once per pretraining iteration."""
         steps_run = [info["steps_run"] for _, info in probe.parts("solve")]
         inits = probe.parts("init")
         for name, count in launches.items():
-            want = sum(steps_run) + (pretraining * len(inits) if name == "field_grad" else 0)
-            if count != (want if name in MAIN_PATH else 0):
+            if name == ADAM:
+                want = ADAM_PER_STEP * sum(steps_run) + pretraining * len(inits)
+            elif name in MAIN_PATH:
+                want = sum(steps_run) + (pretraining * len(inits) if name == "field_grad" else 0)
+            else:
+                want = 0
+            if count != want:
                 raise AssertionError(f"{what}: kernel {name} launched {count} times, want "
-                                     f"{want if name in MAIN_PATH else 0} (solves of "
-                                     f"{steps_run} steps, {len(inits)} inits)")
+                                     f"{want} (solves of {steps_run} steps, {len(inits)} inits)")
         return steps_run
 
     inits, solves = probe.parts("init"), probe.parts("solve")
@@ -2064,7 +2243,7 @@ def suite_solve(device, seed: int) -> tuple[dict, dict, list, object]:
         "evaluator": result.log.settings["evaluator"],
         "start_or_goal_invalid": int((result.start_invalid | result.goal_invalid).sum()),
         "wavefront_cuda_equals_cpu": True,
-        "launches": {name: launches[name] for name in MAIN_PATH},
+        "launches": {name: launches[name] for name in COUNTED},
         "kernels_held": held,
     }
     if feasible < 0.98:
@@ -2097,7 +2276,7 @@ def suite_solve(device, seed: int) -> tuple[dict, dict, list, object]:
     if not (metrics["captured"]["decisions_equal"] and metrics["captured"]["paths_bit_identical"]):
         raise AssertionError("captured suite path: feasibility, iterations or paths differ from "
                              "the eager suite's")
-    for name in MAIN_PATH:
+    for name in COUNTED:
         launches[name] += captured_launches[name]
     return metrics, launches, scenarios, result
 
@@ -2123,7 +2302,7 @@ def host_service(device, seed: int) -> tuple[dict, dict]:
     launches = dict(kernels.LAUNCHES)
     steps = sum(traces["steps"])
     pretraining = int(demo.demo_parameters().planner.init_collision_iteration)
-    check_launches(launches, MAIN_PATH, steps, "the host service", {"field_grad": pretraining})
+    check_launches(launches, MAIN_PATH, steps, "the host service", pretrain_launches(pretraining))
     if result["collided"] or result["min_clearance"] < demo.ROBOT_CLEAR:
         raise AssertionError(f"host service: clearance {result['min_clearance']} below the "
                              f"robot's radius {demo.ROBOT_CLEAR}")
@@ -2138,7 +2317,7 @@ def host_service(device, seed: int) -> tuple[dict, dict]:
             "steps_per_cycle": {"mean": float(steps_per_cycle.mean()),
                                 "min": int(steps_per_cycle.min()),
                                 "max": int(steps_per_cycle.max())},
-            "launches": {name: launches[name] for name in MAIN_PATH},
+            "launches": {name: launches[name] for name in COUNTED},
             "programs": traces["planner"].aot_events}, launches
 
 
@@ -2305,7 +2484,7 @@ def dynamic_sessions(device, seed: int) -> tuple[dict, dict]:
                                                step_dist, seed + 1)
         counted = dict(kernels.LAUNCHES)
         check_launches(counted, MAIN_PATH, cycles * f["steps"], f"the dynamic session ({what})")
-        for name in MAIN_PATH:
+        for name in COUNTED:
             launches[name] = launches.get(name, 0) + counted[name]
         check = demo.session_check(aux, 0.1)
         if check["collided"]:
@@ -2373,7 +2552,7 @@ def fleet_service(device, seed: int, aot: bool = False) -> tuple[dict, dict]:
     result, svc, paths = latency.host_fleet(args, solver, oracle, env)
     launches = dict(kernels.LAUNCHES)
     check_launches(launches, MAIN_PATH, result["steps_run"], "the fleet service",
-                   {"field_grad": solver.config.init_collision_iteration})
+                   pretrain_launches(solver.config.init_collision_iteration))
     check_replicas((svc._states.field_params, svc._states.field_opt_state), f["group_size"])
     if sorted(paths) != list(range(f["robots"])):
         raise AssertionError(f"fleet service: paths for {len(paths)} of {f['robots']} robots")
@@ -2679,7 +2858,7 @@ def demo(device, seed: int) -> tuple[dict, dict]:
     state, losses, elapsed = script.run(solver, state, oracle, g, DEMO_STEPS, log=lambda _: None)
     launches = dict(kernels.LAUNCHES)
     check_launches(launches, MAIN_PATH, DEMO_STEPS, "the demo",
-                   extra={"field_grad": solver.config.init_collision_iteration})
+                   extra=pretrain_launches(solver.config.init_collision_iteration))
     path, collides, length = script.final_path(solver, state, oracle)
     if path.shape != (solver.config.trajectory_length + 2, 3) or not np.isfinite(path).all():
         raise AssertionError(f"demo: bad final path, shape {path.shape}")
@@ -2692,7 +2871,7 @@ def demo(device, seed: int) -> tuple[dict, dict]:
     return {"steps": DEMO_STEPS, "seconds": elapsed, "ms_per_step": elapsed / DEMO_STEPS * 1e3,
             "field_loss": losses[-1][1], "trajectory_loss": losses[-1][2],
             "length": length, "collision_free": not collides,
-            "launches": {name: launches[name] for name in MAIN_PATH},
+            "launches": {name: launches[name] for name in COUNTED},
             "programs": solver.aot_events}, launches
 
 
@@ -3126,7 +3305,7 @@ def mesh_phase(seed: int, main_digest: dict, eager_f32: float, card: str) -> tup
 
     import torch
 
-    launches = {name: 0 for name in MAIN_PATH}
+    launches = {name: 0 for name in COUNTED}
     metrics = {}
     with tempfile.TemporaryDirectory(prefix="mesh-", dir=ROOT) as tmp:
         tmp = pathlib.Path(tmp)
@@ -3149,7 +3328,7 @@ def mesh_phase(seed: int, main_digest: dict, eager_f32: float, card: str) -> tup
             "collectives": r["collectives"], "collective_ms": r["collective_ms"],
             "kernels_held": one["kernels_held"]["max_abs_err"],
             "process_s": time.perf_counter() - t0}
-        for name in MAIN_PATH:
+        for name in COUNTED:
             launches[name] += one["launches"][name]
 
         # (b) two ranks on the one card over gloo, against (a)
@@ -3162,7 +3341,7 @@ def mesh_phase(seed: int, main_digest: dict, eager_f32: float, card: str) -> tup
         metrics["15b"]["process_s"] = time.perf_counter() - t0
         for rank in pair + grouped:
             check_launches(rank["launches"], MAIN_PATH, rank["result"]["steps"], "phase 15b")
-            for name in MAIN_PATH:
+            for name in COUNTED:
                 launches[name] += rank["launches"][name]
 
         # (c) the dry run of the multi-chip entry, both ranks on cuda:0
@@ -3192,7 +3371,7 @@ def mesh_phase(seed: int, main_digest: dict, eager_f32: float, card: str) -> tup
         metrics["15e"], case_launches = mesh_cases(
             tmp, seed, metrics["15b"]["grouped"]["s_per_1000_steps_per_rank"])
         metrics["15e"]["process_s"] = time.perf_counter() - t0
-        for name in MAIN_PATH:
+        for name in COUNTED:
             launches[name] += case_launches[name]
     return metrics, launches
 
@@ -3541,7 +3720,7 @@ def hold_mesh_cases(ranks: list, seed: int, grouped_eager: list) -> tuple[dict, 
 
     device = torch.device(MESH_DEVICE)
     config = run_planner_config()
-    launches = {name: 0 for name in MAIN_PATH}
+    launches = {name: 0 for name in COUNTED}
     metrics = {}
     for i, case in enumerate(ranks[0]["cases"]):
         pair = [rank["cases"][i] for rank in ranks]
@@ -3559,7 +3738,7 @@ def hold_mesh_cases(ranks: list, seed: int, grouped_eager: list) -> tuple[dict, 
                 raise AssertionError(f"{what}: rank {r} makes {c['captured']} collectives per "
                                      f"step captured, {c['eager']} eager")
             for mode in ("eager", "captured"):
-                for k in MAIN_PATH:
+                for k in COUNTED:
                     launches[k] += c[mode]["launches"][k]
         row = {"batch": case["batch"], "group_size": case["group_size"], "steps": case["steps"],
                "captured_equals_eager": True, "replicas_equal": case["replicas_equal"],
@@ -3644,7 +3823,7 @@ def hold_mesh_cases(ranks: list, seed: int, grouped_eager: list) -> tuple[dict, 
             check_launches(f[mode]["launches"], MAIN_PATH,
                            f["goals"] * f["cycles"] * held * f["steps"],
                            f"phase 15e fleet rank {r}")
-            for k in MAIN_PATH:
+            for k in COUNTED:
                 launches[k] += f[mode]["launches"][k]
     metrics["fleet"] = {**{k: fleet[0][k] for k in MESH_FLEET}, "captured_equals_eager": True,
                         **{f"{mode}_{key}": [f[mode][key] for f in fleet]
@@ -3717,7 +3896,7 @@ def bench_modes(seed: int, card: str) -> tuple[list, dict]:
                 raise AssertionError(f"{what}: device {result['device']!r}, captured "
                                      f"{result['captured']}, p50 {result['p50_step_path']}")
             for name, per_step in result["launches_per_step"].items():
-                if per_step != (1.0 if name in path else 0.0):
+                if per_step != (ADAM_PER_STEP if name == ADAM else 1.0 if name in path else 0.0):
                     raise AssertionError(f"{what}: kernel {name} launched {per_step} times per "
                                          f"step (path {path})")
                 launches[name] = launches.get(name, 0) + round(per_step * STEPS)
@@ -3955,7 +4134,8 @@ def init_pair(what: str, device, seed: int, eager_init, captured_init, iteration
         states[mode] = init(generators[mode])
         torch.cuda.synchronize()
         seconds[mode] = time.perf_counter() - t0
-        check_launches(dict(kernels.LAUNCHES), path, iterations, f"phase 17b {what} {mode}")
+        check_launches(dict(kernels.LAUNCHES), path, 0, f"phase 17b {what} {mode}",
+                       pretrain_launches(iterations))
         if mode != "eager":
             for k, n in kernels.LAUNCHES.items():
                 launches[k] = launches.get(k, 0) + n
@@ -4070,7 +4250,7 @@ def planner_capture(device, seed: int) -> tuple[dict, dict]:
             same_state(f"phase 17c planner {name}", out, (planner.state, aux))
     pretraining_iterations = solver.config.init_collision_iteration
     check_launches(launches, MAIN_PATH, sum(PLANNER_STEPS), "phase 17c the planner",
-                   {"field_grad": pretraining_iterations})
+                   pretrain_launches(pretraining_iterations))
     log(f"phase 17c planner: captured {seconds}, eager {eager_seconds}, bit-identical")
     return {"steps": list(PLANNER_STEPS), "pretraining_iterations": pretraining_iterations,
             "captured_s": seconds, "eager_s": eager_seconds, "programs": planner.aot_events,
@@ -4214,6 +4394,7 @@ def main() -> int:
     kernel_results.update(batch_results)
     print(json.dumps({"multi_f32": multi_f32}), flush=True)
     log(f"kernels on the other field configs, max abs err: {check_configs(device, args.seed)}")
+    kernel_results.update(check_adam(device, peaks, args.seed, BATCH))
 
     # 4. main path
     agreement, drift = agreement_check(device, args.seed)
@@ -4246,6 +4427,7 @@ def main() -> int:
     # are the batch path's, which the line reported before this path existed
     launches.update({name: bf16_launches[name] for name in MAIN_PATH_BF16
                      if name not in BATCH_PATH})
+    launches[ADAM] += batch_launches[ADAM] + bf16_launches[ADAM]
 
     # 7. tracked (anytime) path, bf16
     tracked, _, resumable = tracked_solve(device, args.seed, BATCH)
@@ -4266,7 +4448,7 @@ def main() -> int:
     # 10. benchmark suite (run_grid_suite), f32: its launches join the f32 kernels' counts
     suite, suite_launches, suite_scenarios, suite_result = suite_solve(device, args.seed)
     print(json.dumps({"suite_path": {**suite, "card": card}}), flush=True)
-    for name in MAIN_PATH:
+    for name in COUNTED:
         launches[name] += suite_launches[name]
 
     # 11. replanning services: their launches join the kernels' counts
@@ -4287,9 +4469,9 @@ def main() -> int:
     print(json.dumps({"fleet_service": {**service, "card": card}}), flush=True)
     for counted in (host_launches, fleet_launches, single_launches, dynamic_launches,
                     service_launches):
-        for name in MAIN_PATH:
+        for name in COUNTED:
             launches[name] += counted[name]
-    for name in MAIN_PATH_BF16:
+    for name in MAIN_PATH_BF16 + (ADAM,):
         launches[name] += server_launches[name]
     log(f"phase 11: {time.perf_counter() - t0:.1f}s")
 
@@ -4306,7 +4488,7 @@ def main() -> int:
     print(json.dumps({"adapter_analysis": {**adapter, "card": card}}), flush=True)
     demo_metrics, demo_launches = demo(device, args.seed)
     print(json.dumps({"demo": {**demo_metrics, "card": card}}), flush=True)
-    for name in MAIN_PATH:
+    for name in COUNTED:
         launches[name] += demo_launches[name]
     log(f"phase 12: {time.perf_counter() - t0:.1f}s")
 
@@ -4317,13 +4499,13 @@ def main() -> int:
         metrics, order_launches = order_solve(device, args.seed, BATCH, STEPS, order, bf16,
                                               group_size)
         print(json.dumps({line: {**metrics, "card": card}}), flush=True)
-        for name in MAIN_PATH:
+        for name in COUNTED:
             launches[name] += order_launches[name]
     agreement = merged_agreement(device, args.seed)
     print(json.dumps({"merged_agreement": {**agreement, "card": card}}), flush=True)
     for line, metrics, script_launches in suite_scripts(device, args.seed):
         print(json.dumps({line: {**metrics, "card": card}}), flush=True)
-        for name in MAIN_PATH:
+        for name in COUNTED:
             launches[name] += script_launches[name]
     log(f"phase 13: {time.perf_counter() - t0:.1f}s")
 
@@ -4331,18 +4513,31 @@ def main() -> int:
     # service as replays of captured chunk programs, held against their eager
     # phases; their launches join the kernels' counts
     t0 = time.perf_counter()
+    captured_states, captured_seconds = {}, {}
     for line, path, eager_state, dtype in (("captured_path", MAIN_PATH, main_state, "f32"),
                                            ("captured_path_bf16", MAIN_PATH_BF16, bf16_state,
                                             "bf16")):
-        captured, captured_launches, captured_state = solve(device, args.seed, BATCH, STEPS,
-                                                            path, aot=f"car-{dtype}")
-        captured.update(against_eager=same_state(line, eager_state, captured_state),
+        captured, captured_launches, captured_states[dtype] = solve(
+            device, args.seed, BATCH, STEPS, path, aot=f"car-{dtype}")
+        captured.update(against_eager=same_state(line, eager_state, captured_states[dtype]),
                         eager_seconds=eager_seconds[dtype],
-                        launches={name: captured_launches[name] for name in path}, card=card)
+                        launches={name: captured_launches[name] for name in path + (ADAM,)},
+                        card=card)
+        captured_seconds[dtype] = captured["seconds"]
         print(json.dumps({line: captured}), flush=True)
-        for name in path:
+        for name in path + (ADAM,):
             launches[name] += captured_launches[name]
     del main_state, bf16_state
+    # the same captured batch with PyTorch's elementwise Adam in the program
+    # in place of the kernel: the final state bit for bit
+    with plain_adam():
+        plain, _, plain_state = solve(device, args.seed, BATCH, STEPS, MAIN_PATH,
+                                      aot="car-f32-plain-adam", adam_per_step=0)
+    plain.update(against_kernel=same_state("captured path, plain Adam against the kernel",
+                                           captured_states["f32"], plain_state),
+                 kernel_seconds=captured_seconds["f32"], card=card)
+    print(json.dumps({"captured_path_plain_adam": plain}), flush=True)
+    del captured_states, plain_state
     captured, captured_launches, captured_result = grouped_solve(device, args.seed, BATCH, STEPS,
                                                                  aot_prefix="grouped")
     captured.update(against_eager=same_state("captured grouped path", grouped_result,
@@ -4356,7 +4551,7 @@ def main() -> int:
         **service_aot, "eager": {k: service[k] for k in ("p50_ms", "p99_ms", "mean_steps_per_cycle")},
         "card": card}}), flush=True)
     for counted in (captured_launches, service_aot_launches):
-        for name in MAIN_PATH:
+        for name in COUNTED:
             launches[name] += counted[name]
     print(json.dumps({"step_profiles": {**profile_orders(args.seed), "card": card}}), flush=True)
     parts = load_script("profile_step2_torch").profile_parts(device, BATCH, PARTS_STEPS, args.seed)
@@ -4368,7 +4563,7 @@ def main() -> int:
     t0 = time.perf_counter()
     mesh, mesh_launches = mesh_phase(args.seed, main_digest, eager_seconds["f32"], card)
     print(json.dumps({"mesh": {**mesh, "card": card}}), flush=True)
-    for name in MAIN_PATH:
+    for name in COUNTED:
         launches[name] += mesh_launches[name]
     log(f"phase 15: {time.perf_counter() - t0:.1f}s")
 

@@ -14,9 +14,14 @@ last two are the batch-explicit solve's
 (`experimental.ExperimentalConstrainedSolver.run_batch`), in f32 or bf16 with
 the TPU multi-problem kernels' casts.
 
+One kernel replaces no TPU kernel: `adam.adam_leaves`, the optimizer's
+update of a whole parameter tree in one launch (XLA fuses optax's update on
+the TPU), f32 on every path.
+
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel (built from `csrc/` at first use) or raises.
 """
+from .adam import adam_leaves, adam_leaves_plain
 from .collision_terms import collision_terms, collision_terms_plain
 from .common import LAUNCHES, reset_launches
 from .field_grad import field_grad, field_grad_plain
@@ -37,4 +42,6 @@ __all__ = [
     "onf_multi_plain",
     "field_grad_multi",
     "field_grad_multi_plain",
+    "adam_leaves",
+    "adam_leaves_plain",
 ]

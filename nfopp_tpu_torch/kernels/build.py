@@ -29,8 +29,8 @@ NVCC_FLAGS = [
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argument types of the C entry points (csrc/*.cu); each returns its launch's
-# cudaGetLastError(). Structs (NetArgs, Grads) and the stream pass as pointers;
-# an int `bf16` selects a kernel's bf16 instantiation.
+# cudaGetLastError(). Structs (NetArgs, Grads, Adam's leaf table) and the
+# stream pass as pointers; an int `bf16` selects a kernel's bf16 instantiation.
 PROTOTYPES = {
     "nf_onf_forward": [_P, _P, _I, _I, _I, _I, _P, _P],
     "nf_field_grad": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
@@ -38,6 +38,7 @@ PROTOTYPES = {
     "nf_collision_bwd": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P, _P, _P],
     "nf_onf_multi": [_P, _P, _I, _I, _I, _I, _P, _P],
     "nf_field_grad_multi": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "nf_adam": [_P, _I, _P, _P, _F, _F, _F, _F, _F, _F, _P],
 }
 
 _lock = threading.Lock()

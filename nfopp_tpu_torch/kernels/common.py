@@ -21,11 +21,12 @@ __all__ = [
 
 # launches of each kernel, counted by its wrapper where it launches it; the
 # bf16 mode of the production solver's kernels (onf_apply's casts) counts
-# under its own names
+# under its own names; "adam" is the optimizer's update (f32 in both modes)
 LAUNCHES = {
     "onf_forward": 0, "field_grad": 0, "collision_fwd": 0, "collision_bwd": 0,
     "onf_multi": 0, "field_grad_multi": 0,
     "onf_forward_bf16": 0, "field_grad_bf16": 0, "collision_fwd_bf16": 0, "collision_bwd_bf16": 0,
+    "adam": 0,
 }
 
 # the widest fields any kernel is built for; the bf16 forward and collision

@@ -3,7 +3,9 @@
 State is a NamedTuple of tensors (so a later caller can `tree_where` over it
 or average gradients before the update); `count` is per problem [B].
 update = -lr * mu_hat / (sqrt(nu_hat) + eps), with eps outside the square
-root and both moments bias-corrected by the step count, as optax does.
+root and both moments bias-corrected by the step count, as optax does. The
+moments and parameters of every leaf move in `kernels.adam_leaves`: one
+launch for the whole tree on the card, the plain formula on the CPU.
 """
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from ..kernels.adam import adam_leaves
 from ..utils.device import device_constant
 from ..utils.tree import tree_leaves, tree_map
 
@@ -41,13 +44,5 @@ def adam_update(
     steps = count.to(torch.float32)
     bc1 = 1 - torch.pow(device_constant(b1, steps.device), steps)
     bc2 = 1 - torch.pow(device_constant(b2, steps.device), steps)
-    mu = tree_map(lambda g, m: (1 - b1) * g + b1 * m, grads, state.mu)
-    nu = tree_map(lambda g, v: (1 - b2) * (g * g) + b2 * v, grads, state.nu)
-
-    def step(p, m, v):
-        shape = (-1,) + (1,) * (p.ndim - 1)
-        m_hat = m / bc1.reshape(shape)
-        v_hat = v / bc2.reshape(shape)
-        return p + (-lr) * (m_hat / (torch.sqrt(v_hat) + eps))
-
-    return tree_map(step, params, mu, nu), AdamState(count, mu, nu)
+    params, mu, nu = adam_leaves(grads, state.mu, state.nu, params, bc1, bc2, lr, b1, b2, eps)
+    return params, AdamState(count, mu, nu)

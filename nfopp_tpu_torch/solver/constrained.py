@@ -117,9 +117,11 @@ def _crossing_groups(spans: tuple, group_size: int) -> tuple:
 
 def _group_mean(g: torch.Tensor, group_size: int) -> torch.Tensor:
     """Mean over each group of `group_size` consecutive batch rows, broadcast
-    back to the full batch shape (every replica gets the same bits)."""
+    back to the full batch shape (every replica gets the same bits), in
+    memory of its own (the Adam kernel takes contiguous leaves)."""
     grouped = g.reshape((g.shape[0] // group_size, group_size) + tuple(g.shape[1:]))
-    return torch.mean(grouped, dim=1, keepdim=True).expand(grouped.shape).reshape(g.shape)
+    mean = torch.mean(grouped, dim=1, keepdim=True)
+    return mean.expand(grouped.shape).reshape(g.shape).contiguous()
 
 
 def _check_groups(batch: int, group_size: int, bounds: torch.Tensor, oracle_params: Any,
@@ -208,8 +210,11 @@ class _FieldSolver:
         )
 
     def _tensor(self, value) -> torch.Tensor:
+        """A caller's array as a contiguous float32 tensor on the solver's
+        device (a trajectory given to `init_state` is a leaf of the Adam
+        kernel, which takes contiguous leaves)."""
         if torch.is_tensor(value):
-            return value.to(dtype=torch.float32, device=self.device)
+            return value.to(dtype=torch.float32, device=self.device).contiguous()
         return torch.tensor(np.asarray(value), dtype=torch.float32, device=self.device)
 
     def _field_adam(self, grads, opt_state, params):
@@ -356,7 +361,9 @@ class _FieldSolver:
                 a, b = whole[0][0], whole[-1][1]
                 pieces.append((a, _group_mean(g[a:b], group_size)))
             pieces.sort(key=lambda piece: piece[0])
-            return pieces[0][1] if len(pieces) == 1 else torch.cat([x for _, x in pieces])
+            if len(pieces) == 1:
+                return pieces[0][1].contiguous()
+            return torch.cat([x for _, x in pieces])
 
         averaged = iter([average(i, g) for i, g in enumerate(leaves)])
         return tree_map(lambda _: next(averaged), grads)

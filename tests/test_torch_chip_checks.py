@@ -341,18 +341,30 @@ def test_tensor_core_kernels_raises_on_hmma_in_an_f32_kernel(f32_kernel):
 
 
 def test_check_launches_wants_each_path_kernel_once_per_step():
+    """Each kernel of the path once per step, the Adam kernel twice (the
+    field's and the trajectory's update), pretraining's iterations once
+    more each for the field-gradient and Adam kernels, others never."""
     path = ("onf_forward", "field_grad")
     launches = {name: 0 for name in kernels.LAUNCHES}
-    launches.update(onf_forward=150, field_grad=150)
+    launches.update(onf_forward=150, field_grad=150, adam=300)
     cs.check_launches(launches, path, 150, "a test")
-    for name, count in (("field_grad", 149), ("collision_fwd", 1)):
+    for name, count in (("field_grad", 149), ("collision_fwd", 1), ("adam", 150), ("adam", 301)):
         wrong = dict(launches, **{name: count})
         with pytest.raises(AssertionError, match=f"kernel {name} launched {count} times"):
             cs.check_launches(wrong, path, 150, "a test")
-    # pretraining's launches of the field-gradient kernel come on top
-    cs.check_launches(dict(launches, field_grad=250), path, 150, "a test", {"field_grad": 100})
-    with pytest.raises(AssertionError, match="kernel field_grad launched 150 times"):
-        cs.check_launches(launches, path, 150, "a test", {"field_grad": 100})
+    # pretraining's launches of the field-gradient and Adam kernels come on top
+    pretrained = dict(launches, field_grad=250, adam=400)
+    cs.check_launches(pretrained, path, 150, "a test", cs.pretrain_launches(100))
+    for name in ("field_grad", "adam"):
+        with pytest.raises(AssertionError, match=f"kernel {name} launched {launches[name]} times"):
+            cs.check_launches(dict(pretrained, **{name: launches[name]}), path, 150, "a test",
+                              cs.pretrain_launches(100))
+    # pretraining alone (no steps), and a program whose Adam is PyTorch's
+    cs.check_launches(dict(launches, onf_forward=0, field_grad=100, adam=100), ("field_grad",), 0,
+                      "a test", cs.pretrain_launches(100))
+    cs.check_launches(dict(launches, adam=0), path, 150, "a test", adam_per_step=0)
+    with pytest.raises(AssertionError, match="kernel adam launched 300 times"):
+        cs.check_launches(launches, path, 150, "a test", adam_per_step=0)
 
 
 def test_check_replicas_holds_groups_bit_identical_and_distinct():
