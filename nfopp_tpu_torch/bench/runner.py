@@ -38,6 +38,7 @@ from ..parallel import BatchPlanner, batch_sharding, gather_batch, problem_mesh,
 from ..solver import ConstrainedSolver, config_from_parameters
 from ..solver.api import DEFAULT_PARAMETERS
 from ..solver.tracking import evaluate_path
+from ..utils import profiling
 from ..utils.tree import tree_map
 from ..worlds.oracle import GridOracle, grid_collision
 from ..worlds.scenarios import GridScenario
@@ -171,195 +172,204 @@ def run_grid_suite(
     (`BatchPlanner(aot_prefix="suite")`) and records their `aot_events` in
     the log's suite settings.
     """
-    if parameters is None:
-        parameters = DEFAULT_PARAMETERS
-    # fail BEFORE the solve: an unavailable native library must not discard
-    # minutes of card time at evaluation (checked again post-solve for the log)
-    if require_native_evaluator and active_evaluator() != "native":
-        raise RuntimeError(
-            "native path-statistics evaluator requested but unavailable "
-            "(bench/native build failed?) — refusing to start a suite whose "
-            "artifacts would silently be numpy-evaluated"
-        )
-    config = config_from_parameters(parameters)
-    oracle_fn = oracle_fn if oracle_fn is not None else grid_collision
-    solver = ConstrainedSolver(config, oracle_fn,
-                               device=device if mesh is None else mesh.device)
-    # aot=True runs the solves as replays of captured chunk programs
-    # (utils/aot.py; keys carry source, config and shape identity)
-    planner = BatchPlanner(solver, mesh, aot_prefix="suite" if aot else None)
-    device, mesh = solver.device, planner.mesh
-
-    grid_oracles = _stack_oracles([s.oracle(footprint_radius, device) for s in scenarios])
-    oracles = solve_oracles if solve_oracles is not None else grid_oracles
-
-    def batched(values) -> torch.Tensor:
-        return torch.tensor(np.stack([np.asarray(v, np.float32) for v in values]),
-                            device=device)
-
-    starts = batched([s.start for s in scenarios])
-    goals = batched([s.goal for s in scenarios])
-    bounds = batched([s.bounds for s in scenarios])
-
-    # start/goal validity precheck against the solve oracles
-    endpoint_check = oracle_fn(oracles, torch.stack([starts, goals], dim=1)).cpu().numpy()
-    start_invalid, goal_invalid = endpoint_check[:, 0], endpoint_check[:, 1]
-
-    t0 = time.time()
-    trajectories = None
-    if astar_init:
-        # each rank plans its rows; the planner takes the whole batch
-        rows = batch_sharding(mesh, len(scenarios))
-        trajectories = gather_batch(batched_wavefront_trajectories(
-            grid_oracles.occupancy[rows],  # footprint-dilated occupancy [B, H, W]
-            starts[rows], goals[rows], batched([s.origin for s in scenarios])[rows],
-            batched([s.resolution for s in scenarios])[rows], config.trajectory_length,
-        ), mesh)
-    generator = torch.Generator(device=device).manual_seed(seed)
-    states = planner.init_batch(generator, starts, goals, bounds, oracles, trajectories)
-    solve_kw = dict(max_iterations=max_iterations, min_iterations=min_iterations,
-                    check_freq=check_freq, stop_on_plateau=stop_on_plateau)
-    if checkpoint_path is not None:
-        result = planner.solve_checkpointed(
-            states, oracles, generator, checkpoint_path,
-            checkpoint_every_chunks=checkpoint_every_chunks, resume=resume, **solve_kw,
-        )
-    else:
-        result = planner.solve(states, oracles, generator, **solve_kw)
-    paths = result.path.cpu().numpy().copy()
-    feasible = result.feasible.cpu().numpy().copy()
-    lengths = result.length.cpu().numpy().copy()
-    iterations = result.iterations.cpu().numpy().copy()
-
-    # cheap shortcut/repair pass FIRST: a chord-repairable problem must not
-    # burn restart_failed full re-solves (the repair is ~free)
-    repaired_total = 0
-    if shortcut_trials > 0:
-        paths, lengths, feasible, rep_mask = _shortcut_pass(
-            solver, oracles, paths, lengths, feasible,
-            torch.Generator(device=device).manual_seed(seed ^ 0x5C0C), shortcut_trials,
-            mesh=mesh,
-        )
-        repaired_total += int(rep_mask.sum())  # base batch: one lane == one problem
-
-    rounds_used = 0
-    for rnd in range(restart_rounds if restart_failed > 0 else 0):
-        if feasible.all():
-            break
-        rounds_used += 1
-        failed = np.where(~feasible)[0]
-        r = restart_failed
-        total = len(failed) * r
-        # problem-major replication, padded to a multiple of the device count
-        sel = np.repeat(failed, r)
-        pad = (-total) % planner.device_count
-        if pad:
-            sel = np.concatenate([sel, np.repeat(failed[-1:], pad)])
-        idx = torch.as_tensor(sel, device=device)
-        oracles_f = tree_map(lambda x: x[idx], oracles)
-        retry_seed = seed ^ (0x5EED0F + rnd * 0x9E3779)
-        retry_generator = torch.Generator(device=device).manual_seed(retry_seed)
-        states_f = planner.init_batch(
-            retry_generator, starts[idx], goals[idx], bounds[idx], oracles_f,
-            None if trajectories is None else trajectories[idx],
-        )
-        if checkpoint_path is not None:
-            cp = pathlib.Path(checkpoint_path)
-            suffix = "-retry.npz" if rnd == 0 else f"-retry{rnd}.npz"
-            retry = planner.solve_checkpointed(
-                states_f, oracles_f, retry_generator,
-                cp.with_name(cp.name.replace(".npz", "") + suffix),
-                checkpoint_every_chunks=checkpoint_every_chunks, resume=resume, **solve_kw,
+    with profiling.span("suite", batch=len(scenarios), aot=aot):
+        if parameters is None:
+            parameters = DEFAULT_PARAMETERS
+        # fail BEFORE the solve: an unavailable native library must not discard
+        # minutes of card time at evaluation (checked again post-solve for the log)
+        if require_native_evaluator and active_evaluator() != "native":
+            raise RuntimeError(
+                "native path-statistics evaluator requested but unavailable "
+                "(bench/native build failed?) — refusing to start a suite whose "
+                "artifacts would silently be numpy-evaluated"
             )
-        else:
-            retry = planner.solve(states_f, oracles_f, retry_generator, **solve_kw)
-        r_paths_flat = retry.path.cpu().numpy().copy()
-        r_feas_flat = retry.feasible.cpu().numpy().copy()
-        r_len_flat = retry.length.cpu().numpy().copy()
-        r_repaired_flat = np.zeros(len(r_feas_flat), bool)
+        config = config_from_parameters(parameters)
+        oracle_fn = oracle_fn if oracle_fn is not None else grid_collision
+        solver = ConstrainedSolver(config, oracle_fn,
+                                   device=device if mesh is None else mesh.device)
+        # aot=True runs the solves as replays of captured chunk programs
+        # (utils/aot.py; keys carry source, config and shape identity)
+        planner = BatchPlanner(solver, mesh, aot_prefix="suite" if aot else None)
+        device, mesh = solver.device, planner.mesh
+
+        grid_oracles = _stack_oracles([s.oracle(footprint_radius, device) for s in scenarios])
+        oracles = solve_oracles if solve_oracles is not None else grid_oracles
+
+        def batched(values) -> torch.Tensor:
+            return torch.tensor(np.stack([np.asarray(v, np.float32) for v in values]),
+                                device=device)
+
+        starts = batched([s.start for s in scenarios])
+        goals = batched([s.goal for s in scenarios])
+        bounds = batched([s.bounds for s in scenarios])
+
+        # start/goal validity precheck against the solve oracles
+        endpoint_check = oracle_fn(oracles, torch.stack([starts, goals], dim=1)).cpu().numpy()
+        start_invalid, goal_invalid = endpoint_check[:, 0], endpoint_check[:, 1]
+
+        t0 = time.time()
+        trajectories = None
+        if astar_init:
+            # each rank plans its rows; the planner takes the whole batch
+            rows = batch_sharding(mesh, len(scenarios))
+            with profiling.span("suite.wavefront"):
+                trajectories = gather_batch(batched_wavefront_trajectories(
+                    grid_oracles.occupancy[rows],  # footprint-dilated occupancy [B, H, W]
+                    starts[rows], goals[rows], batched([s.origin for s in scenarios])[rows],
+                    batched([s.resolution for s in scenarios])[rows], config.trajectory_length,
+                ), mesh)
+        generator = torch.Generator(device=device).manual_seed(seed)
+        with profiling.span("suite.init"):
+            states = planner.init_batch(generator, starts, goals, bounds, oracles, trajectories)
+        solve_kw = dict(max_iterations=max_iterations, min_iterations=min_iterations,
+                        check_freq=check_freq, stop_on_plateau=stop_on_plateau)
+        with profiling.span("suite.solve"):
+            if checkpoint_path is not None:
+                result = planner.solve_checkpointed(
+                    states, oracles, generator, checkpoint_path,
+                    checkpoint_every_chunks=checkpoint_every_chunks, resume=resume, **solve_kw,
+                )
+            else:
+                result = planner.solve(states, oracles, generator, **solve_kw)
+            paths = result.path.cpu().numpy().copy()
+            feasible = result.feasible.cpu().numpy().copy()
+            lengths = result.length.cpu().numpy().copy()
+            iterations = result.iterations.cpu().numpy().copy()
+
+        # cheap shortcut/repair pass FIRST: a chord-repairable problem must not
+        # burn restart_failed full re-solves (the repair is ~free)
+        repaired_total = 0
         if shortcut_trials > 0:
-            # restarts get the same repair chance as the base solve
-            r_paths_flat, r_len_flat, r_feas_flat, r_repaired_flat = _shortcut_pass(
-                solver, oracles_f, r_paths_flat, r_len_flat, r_feas_flat,
-                torch.Generator(device=device).manual_seed(retry_seed ^ 0x5C0C),
-                shortcut_trials, mesh=mesh,
-            )
-        r_paths = r_paths_flat[:total].reshape(len(failed), r, *paths.shape[1:])
-        r_feas = r_feas_flat[:total].reshape(len(failed), r)
-        r_len = r_len_flat[:total].reshape(len(failed), r)
-        r_iter = retry.iterations.cpu().numpy()[:total].reshape(len(failed), r)
-        r_repaired = r_repaired_flat[:total].reshape(len(failed), r)
-        for j, b in enumerate(failed):
-            ok = np.where(r_feas[j])[0]
-            if len(ok):
-                best = ok[np.argmin(r_len[j][ok])]
-                paths[b] = r_paths[j, best]
-                lengths[b] = r_len[j, best]
-                feasible[b] = True
-                # a problem counts as shortcut-repaired only if the lane the
-                # selection kept owes its feasibility to the chord repair
-                # (per PROBLEM, never per lane)
-                repaired_total += int(r_repaired[j, best])
-                # total optimization spent on this problem: first try + restarts
-                iterations[b] = iterations[b] + int(r_iter[j, best])
-    wall = time.time() - t0
+            with profiling.span("suite.shortcut"):
+                paths, lengths, feasible, rep_mask = _shortcut_pass(
+                    solver, oracles, paths, lengths, feasible,
+                    torch.Generator(device=device).manual_seed(seed ^ 0x5C0C), shortcut_trials,
+                    mesh=mesh,
+                )
+            repaired_total += int(rep_mask.sum())  # base batch: one lane == one problem
 
-    evaluator = active_evaluator()
-    if require_native_evaluator and evaluator != "native":
-        raise RuntimeError(
-            "native path-statistics evaluator requested but unavailable "
-            "(bench/native build failed?) — refusing to emit numpy-evaluated "
-            "artifacts silently"
+        rounds_used = 0
+        for rnd in range(restart_rounds if restart_failed > 0 else 0):
+            if feasible.all():
+                break
+            with profiling.span("suite.restart") as span:
+                rounds_used += 1
+                failed = np.where(~feasible)[0]
+                r = restart_failed
+                total = len(failed) * r
+                # problem-major replication, padded to a multiple of the device count
+                sel = np.repeat(failed, r)
+                pad = (-total) % planner.device_count
+                if pad:
+                    sel = np.concatenate([sel, np.repeat(failed[-1:], pad)])
+                if span is not None:
+                    span.attrs["lanes"] = len(sel)
+                idx = torch.as_tensor(sel, device=device)
+                oracles_f = tree_map(lambda x: x[idx], oracles)
+                retry_seed = seed ^ (0x5EED0F + rnd * 0x9E3779)
+                retry_generator = torch.Generator(device=device).manual_seed(retry_seed)
+                states_f = planner.init_batch(
+                    retry_generator, starts[idx], goals[idx], bounds[idx], oracles_f,
+                    None if trajectories is None else trajectories[idx],
+                )
+                if checkpoint_path is not None:
+                    cp = pathlib.Path(checkpoint_path)
+                    suffix = "-retry.npz" if rnd == 0 else f"-retry{rnd}.npz"
+                    retry = planner.solve_checkpointed(
+                        states_f, oracles_f, retry_generator,
+                        cp.with_name(cp.name.replace(".npz", "") + suffix),
+                        checkpoint_every_chunks=checkpoint_every_chunks, resume=resume, **solve_kw,
+                    )
+                else:
+                    retry = planner.solve(states_f, oracles_f, retry_generator, **solve_kw)
+                r_paths_flat = retry.path.cpu().numpy().copy()
+                r_feas_flat = retry.feasible.cpu().numpy().copy()
+                r_len_flat = retry.length.cpu().numpy().copy()
+                r_repaired_flat = np.zeros(len(r_feas_flat), bool)
+                if shortcut_trials > 0:
+                    # restarts get the same repair chance as the base solve
+                    r_paths_flat, r_len_flat, r_feas_flat, r_repaired_flat = _shortcut_pass(
+                        solver, oracles_f, r_paths_flat, r_len_flat, r_feas_flat,
+                        torch.Generator(device=device).manual_seed(retry_seed ^ 0x5C0C),
+                        shortcut_trials, mesh=mesh,
+                    )
+                r_paths = r_paths_flat[:total].reshape(len(failed), r, *paths.shape[1:])
+                r_feas = r_feas_flat[:total].reshape(len(failed), r)
+                r_len = r_len_flat[:total].reshape(len(failed), r)
+                r_iter = retry.iterations.cpu().numpy()[:total].reshape(len(failed), r)
+                r_repaired = r_repaired_flat[:total].reshape(len(failed), r)
+                for j, b in enumerate(failed):
+                    ok = np.where(r_feas[j])[0]
+                    if len(ok):
+                        best = ok[np.argmin(r_len[j][ok])]
+                        paths[b] = r_paths[j, best]
+                        lengths[b] = r_len[j, best]
+                        feasible[b] = True
+                        # a problem counts as shortcut-repaired only if the lane the
+                        # selection kept owes its feasibility to the chord repair
+                        # (per PROBLEM, never per lane)
+                        repaired_total += int(r_repaired[j, best])
+                        # total optimization spent on this problem: first try + restarts
+                        iterations[b] = iterations[b] + int(r_iter[j, best])
+        wall = time.time() - t0
+
+        with profiling.span("suite.evaluate"):
+            evaluator = active_evaluator()
+            if require_native_evaluator and evaluator != "native":
+                raise RuntimeError(
+                    "native path-statistics evaluator requested but unavailable "
+                    "(bench/native build failed?) — refusing to emit numpy-evaluated "
+                    "artifacts silently"
+                )
+            log = ResultsLog(settings={
+                "nfomp": dict(parameters),
+                "evaluator": evaluator,
+                "suite": {
+                    "shortcut_trials": shortcut_trials,
+                    "repaired_by_shortcut": repaired_total,
+                    "restart_failed": restart_failed,
+                    "restart_rounds": restart_rounds,
+                    "restart_rounds_used": rounds_used,
+                    "stop_on_plateau": stop_on_plateau,
+                    **({"aot_events": planner.aot_events} if aot else {}),
+                },
+            })
+            goals_np = goals.cpu().numpy()
+            stats_list = []
+            for b, scenario in enumerate(scenarios):
+                occupied = np.argwhere(scenario.blocked)
+                # obstacle cell centers for clearing metrics
+                ox, oy = scenario.origin
+                obstacle_points = np.stack(
+                    [
+                        ox + (occupied[:, 1] + 0.5) * scenario.resolution,
+                        oy + (occupied[:, 0] + 0.5) * scenario.resolution,
+                    ],
+                    axis=1,
+                ) if len(occupied) else None
+                stats = path_statistics(
+                    paths[b],
+                    obstacles=obstacle_points,
+                    collides=not bool(feasible[b]),
+                    planner=planner_name,
+                    planning_time=wall / len(scenarios),
+                    goal=goals_np[b],
+                    obstacle_segments=(
+                        None if obstacle_segments is None else obstacle_segments[b]
+                    ),
+                )
+                stats_list.append(stats)
+                log.log_run(
+                    planner_name, paths[b], stats,
+                    extra={"iterations": int(iterations[b]), "seed_index": b},
+                    environment=grid_environment_info(
+                        scenario.blocked, scenario.resolution, scenario.origin,
+                        scenario.start, scenario.goal,
+                    ),
+                )
+        return SuiteResult(
+            paths=paths, feasible=feasible, lengths=lengths, iterations=iterations,
+            stats=stats_list, wall_time=wall, log=log,
+            start_invalid=start_invalid, goal_invalid=goal_invalid,
+            repaired_by_shortcut=repaired_total, restart_rounds_used=rounds_used,
         )
-    log = ResultsLog(settings={
-        "nfomp": dict(parameters),
-        "evaluator": evaluator,
-        "suite": {
-            "shortcut_trials": shortcut_trials,
-            "repaired_by_shortcut": repaired_total,
-            "restart_failed": restart_failed,
-            "restart_rounds": restart_rounds,
-            "restart_rounds_used": rounds_used,
-            "stop_on_plateau": stop_on_plateau,
-            **({"aot_events": planner.aot_events} if aot else {}),
-        },
-    })
-    goals_np = goals.cpu().numpy()
-    stats_list = []
-    for b, scenario in enumerate(scenarios):
-        occupied = np.argwhere(scenario.blocked)
-        # obstacle cell centers for clearing metrics
-        ox, oy = scenario.origin
-        obstacle_points = np.stack(
-            [
-                ox + (occupied[:, 1] + 0.5) * scenario.resolution,
-                oy + (occupied[:, 0] + 0.5) * scenario.resolution,
-            ],
-            axis=1,
-        ) if len(occupied) else None
-        stats = path_statistics(
-            paths[b],
-            obstacles=obstacle_points,
-            collides=not bool(feasible[b]),
-            planner=planner_name,
-            planning_time=wall / len(scenarios),
-            goal=goals_np[b],
-            obstacle_segments=(
-                None if obstacle_segments is None else obstacle_segments[b]
-            ),
-        )
-        stats_list.append(stats)
-        log.log_run(
-            planner_name, paths[b], stats,
-            extra={"iterations": int(iterations[b]), "seed_index": b},
-            environment=grid_environment_info(
-                scenario.blocked, scenario.resolution, scenario.origin,
-                scenario.start, scenario.goal,
-            ),
-        )
-    return SuiteResult(
-        paths=paths, feasible=feasible, lengths=lengths, iterations=iterations,
-        stats=stats_list, wall_time=wall, log=log,
-        start_invalid=start_invalid, goal_invalid=goal_invalid,
-        repaired_by_shortcut=repaired_total, restart_rounds_used=rounds_used,
-    )

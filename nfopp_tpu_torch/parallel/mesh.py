@@ -43,6 +43,7 @@ __all__ = [
     "any_over_problems",
     "barrier",
     "batch_sharding",
+    "count_over_problems",
     "gather_batch",
     "initialize_distributed",
     "mean_over_problems",
@@ -212,21 +213,27 @@ def mean_over_problems(values: torch.Tensor, mesh: ProblemMesh | None = None) ->
     return total / (values.shape[0] * mesh.size)
 
 
-def _flag_sum(flag: bool, mesh: ProblemMesh) -> int:
-    wire = torch.tensor([int(flag)], dtype=torch.int32, device=mesh.wire)
+def _flag_sum(count: int, mesh: ProblemMesh) -> int:
+    wire = torch.tensor([count], dtype=torch.int32, device=mesh.wire)
     _collective(dist.all_reduce, wire, dist.ReduceOp.SUM, mesh.group)
     return int(wire.item())
 
 
-def any_over_problems(flags: torch.Tensor, mesh: ProblemMesh | None) -> bool:
-    """Whether any problem of the global batch has its flag set (one host
-    sync, one small all_reduce): a host decision every rank takes alike.
-    The run loop's one host decision: a `sync` span."""
+def count_over_problems(flags: torch.Tensor, mesh: ProblemMesh | None) -> tuple[int, int]:
+    """(this rank's, the global batch's) number of problems with their flag
+    set (one host sync, one small all_reduce): the global count is the same
+    on every rank, so a decision taken from it is taken alike. The run
+    loop's host decisions: a `sync` span."""
     with profiling.span("sync"):
-        local = bool(flags.any())
+        local = int(flags.sum())
         if mesh is None or not mesh.distributed:
-            return local
-        return _flag_sum(local, mesh) > 0
+            return local, local
+        return local, _flag_sum(local, mesh)
+
+
+def any_over_problems(flags: torch.Tensor, mesh: ProblemMesh | None) -> bool:
+    """Whether any problem of the global batch has its flag set."""
+    return count_over_problems(flags, mesh)[1] > 0
 
 
 def all_over_problems(flags: torch.Tensor, mesh: ProblemMesh | None) -> bool:
@@ -248,7 +255,7 @@ def barrier(mesh: ProblemMesh) -> None:
     """Every rank waits for the others (an all_reduce, which every backend
     takes on its own wire)."""
     if mesh.distributed:
-        _flag_sum(True, mesh)
+        _flag_sum(1, mesh)
 
 
 def _choose_backend(num_processes: int) -> tuple[str, str]:

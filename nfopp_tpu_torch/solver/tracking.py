@@ -17,6 +17,13 @@ draw noise, as vmap's lanes are. On a problem mesh (the solver's `mesh`, or
 the `mesh` given) each rank holds rows of the batch, and the ranks agree on
 whether any problem is still active (one small all_reduce per chunk), so all
 run the same chunks, as the 1-rank loop does.
+
+`LANE_STEPS` counts, in this process, the lane-steps the tracked loop of
+`run_tracking_segment` computed (`"computed"`: this rank's rows times the
+steps of each chunk) and those it computed for problems still active
+(`"active"`); their difference is the work spent on problems already
+stopped. Both are host integers, read with the loop's one host sync per
+chunk (`count_over_problems`).
 """
 from __future__ import annotations
 
@@ -25,11 +32,12 @@ from typing import Any, NamedTuple
 import torch
 
 from ..ops.math import dense_path
-from ..parallel.mesh import any_over_problems
+from ..parallel.mesh import count_over_problems
 from ..utils import profiling
 from ..utils.tree import tree_where
 
 __all__ = [
+    "LANE_STEPS",
     "TrackingCarry",
     "TrackingResult",
     "evaluate_path",
@@ -39,6 +47,10 @@ __all__ = [
     "tracking_finalize",
     "tracking_init",
 ]
+
+# lane-steps of the tracked loop in this process: every row it computed, and
+# the rows of problems still active (see the module)
+LANE_STEPS = {"computed": 0, "active": 0}
 
 
 class TrackingResult(NamedTuple):
@@ -138,8 +150,11 @@ def run_tracking_segment(
     mesh = getattr(solver, "mesh", None) if mesh is None else mesh
     while True:
         active = ~carry.done & (carry.chunk < end_chunk)
-        if not any_over_problems(active, mesh):
+        live, anywhere = count_over_problems(active, mesh)
+        if not anywhere:
             return carry
+        LANE_STEPS["computed"] += active.shape[0] * check_freq
+        LANE_STEPS["active"] += live * check_freq
         stepped, _ = solver.run(carry.state, oracle_params, check_freq, noise)
         state = tree_where(active, stepped, carry.state)
         iterations = torch.where(active, carry.iterations + check_freq, carry.iterations)

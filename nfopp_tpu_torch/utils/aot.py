@@ -51,6 +51,9 @@ tensors (the caller asked for the CPU) it returns `fn` itself with
   `x`), so a capture makes no collective. Without such a step a program is
   one graph.
 
+`CAPTURES["programs"]` counts the captures made in this process; a
+program taken from the store adds nothing.
+
 No counterpart: JAX's `save_aot`, `try_load_aot` and `aot_path`. A CUDA
 graph holds device addresses of its process and cannot outlive it. What
 persists across processes is the content-keyed kernel library
@@ -73,6 +76,7 @@ from . import profiling
 from .tree import tree_leaves, tree_map
 
 __all__ = [
+    "CAPTURES",
     "AotProgram",
     "aot_key",
     "aot_or_compile",
@@ -88,6 +92,8 @@ _SOURCE_DIGEST_CACHE: str | None = None
 _PROGRAMS: dict[str, "AotProgram"] = {}
 # while `_capture` runs `fn`: what `between_replays` does there
 _CAPTURING: "_Segments | None" = None
+# the captures made in this process
+CAPTURES = {"programs": 0}
 
 
 def source_digest() -> str:
@@ -258,6 +264,7 @@ def aot_or_compile(
     with profiling.span("capture", program=name):
         program = AotProgram(_capture(fn, example_args, device), False, 0.0, key)
     program = program._replace(seconds=time.perf_counter() - t0)
+    CAPTURES["programs"] += 1
     if enabled:
         _PROGRAMS[key] = program
     if verbose:

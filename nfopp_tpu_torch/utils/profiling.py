@@ -19,17 +19,27 @@ profiler range `nfopp_tpu_torch.<name>`, so the exported Chrome trace
 carries the span on the device trace's own clock. `spans()` returns a copy
 of the records, `clear_spans()` empties them.
 
-    span         where                                  what it separates
-    run          _FieldSolver.run, run_grouped,         one call (steps, batch, schedule)
-                 run_batch
-    sync         parallel/mesh.py::any_over_problems    the host waiting on the card
-    program      _FieldSolver._program                  key building and store lookup
-    capture      utils/aot.py::aot_or_compile           a program's warm-up and capture
-    replay       _run_program, each program call        copy-in, generator state, launch
-    run.outputs  the end of _run_program                the output state's clone
-    init         init_state                             the batch boundary
-    pretrain     init_state, around _pretrain_field     the field's pretraining
-    evaluate     solver/tracking.py::evaluate_path      the batch boundary
+    span             where                                what it separates
+    run              _FieldSolver.run, run_grouped,       one call (steps, batch, schedule)
+                     run_batch
+    sync             parallel/mesh.py::                   the host waiting on the card
+                     count_over_problems
+    program          _FieldSolver._program                key building and store lookup
+    capture          utils/aot.py::aot_or_compile         a program's warm-up and capture
+    replay           _run_program, each program call      copy-in, generator state, launch
+    run.outputs      the end of _run_program              the output state's clone
+    init             init_state                           the batch boundary
+    pretrain         init_state, around _pretrain_field   the field's pretraining
+    evaluate         solver/tracking.py::evaluate_path    the batch boundary
+    suite            bench/runner.py::run_grid_suite      one call (batch, aot)
+    suite.wavefront  run_grid_suite                       the wavefront initial paths
+    suite.init       run_grid_suite                       the base batch's init_state
+    suite.solve      run_grid_suite                       the base batch's tracked solve
+    suite.shortcut   run_grid_suite                       the base batch's shortcut pass
+    suite.restart    run_grid_suite                       a restart round: its selection,
+                                                          init, tracked solve and shortcut
+                                                          (lanes)
+    suite.evaluate   run_grid_suite                       PathStatistics and the results log
 
 A gap in the device's work is read by the program range the host was in:
 under `sync` the host waited for earlier work and then had nothing queued;
