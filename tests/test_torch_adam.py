@@ -30,20 +30,11 @@ from nfopp_tpu_torch.solver import adam as adam_module
 from nfopp_tpu_torch.tools.scene import car_world
 from nfopp_tpu_torch.utils.tree import tree_leaves, tree_map
 from nfopp_tpu_torch.worlds import rectangle_collision
+from torch_threads import one_thread  # noqa: F401
 
 CONFIG = run_planner_config()
 ROWS = 3
 F32 = np.float32
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Long loops of small tensor ops: one intra-op thread, so that test
-    workers sharing the cores do not spin against each other."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(autouse=True)

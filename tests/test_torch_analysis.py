@@ -14,6 +14,7 @@ from nfopp_tpu.bench import analysis as jax_analysis
 from nfopp_tpu_torch.bench import analysis
 from nfopp_tpu_torch.bench.metrics import PathStatistics
 from nfopp_tpu_torch.bench.results import ResultsLog, grid_environment_info
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 

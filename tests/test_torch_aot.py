@@ -28,6 +28,7 @@ from nfopp_tpu_torch.utils.aot import (
     source_digest,
 )
 from nfopp_tpu_torch.utils.tree import tree_copy_
+from torch_threads import one_thread  # noqa: F401
 
 
 def test_key_is_deterministic_and_config_sensitive():

@@ -36,6 +36,7 @@ from nfopp_tpu_torch.worlds import (
     two_walls_environment,
     two_walls_se2_environment,
 )
+from torch_threads import one_thread  # noqa: F401
 
 # tests/test_api_service.py:25-41
 RUN_PLANNER_PARAMS = dict(
@@ -55,16 +56,6 @@ RUN_PLANNER_PARAMS = dict(
         boundary_weight=1, collision_multipliers_lr=1e-3,
     ),
 )
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Long loops of small tensor ops: one intra-op thread, so that test
-    workers sharing the cores do not spin against each other."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def oracle(env):

@@ -10,6 +10,7 @@ import nfopp_tpu_torch.ops as port_ops
 from nfopp_tpu.models import ONFConfig as JaxONFConfig
 from nfopp_tpu.models import onf_param_count as jax_onf_param_count
 from nfopp_tpu_torch.models import ONFConfig, onf_param_count
+from torch_threads import one_thread  # noqa: F401
 
 CONFIGS = [
     {},

@@ -30,6 +30,7 @@ from nfopp_tpu.worlds import pad_obstacle_points as jax_pad_obstacle_points
 from nfopp_tpu_torch.experimental import ExperimentalConstrainedSolver
 from nfopp_tpu_torch.solver import ConstrainedSolver
 from test_torch_capture_scripts import FORBIDDEN
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 DROPPED = {"outer_unroll", "aot_loaded", "claim_wait_s"}

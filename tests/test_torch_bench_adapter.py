@@ -15,16 +15,7 @@ from nfopp_tpu.worlds import GridScenario as JaxGridScenario
 from nfopp_tpu_torch.bench import BenchmarkAdapter, BenchmarkCollisionChecker, ResultsLog
 from nfopp_tpu_torch.utils import Position2
 from nfopp_tpu_torch.worlds import GridScenario
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Many small tensor ops: one intra-op thread, so that test workers
-    sharing the cores do not spin against each other."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_threads import one_thread  # noqa: F401
 
 
 def block_world(cls):

@@ -27,20 +27,11 @@ from nfopp_tpu_torch import kernels
 from nfopp_tpu_torch.models import ONFConfig, params_from_jax
 from test_torch_kernels import CONFIGS
 from test_torch_multi_kernels import FWD_TOLS, GRAD_TOLS, LOSS_TOLS, assert_close
+from torch_threads import one_thread  # noqa: F401
 
 B, M = 2, 53
 # the gradients of the four cast weights: each rounded once to bf16
 CAST_WEIGHTS = [("encoding", "w"), ("mlp1", "w"), ("mlp2", "w"), ("out", "w")]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Long loops of small tensor ops: one intra-op thread, so that test
-    workers sharing the cores do not spin against each other."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(autouse=True)

@@ -23,19 +23,10 @@ from nfopp_tpu_torch.worlds import (
     rectangle_collision,
 )
 from test_torch_solver import BATCH, CFG, JCFG, replay, to_np
+from torch_threads import one_thread  # noqa: F401
 
 JCFG16 = JCFG._replace(onf=JCFG.onf._replace(compute_dtype="bfloat16"))
 CFG16 = CFG._replace(onf=CFG.onf._replace(compute_dtype="bfloat16"))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Long loops of small tensor ops: one intra-op thread, so that test
-    workers sharing the cores do not spin against each other."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

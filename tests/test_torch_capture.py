@@ -32,21 +32,12 @@ from nfopp_tpu_torch.solver import (
 from nfopp_tpu_torch.tools.scene import car_world
 from nfopp_tpu_torch.utils.tree import tree_leaves
 from nfopp_tpu_torch.worlds import CircleOracle, circle_collision, rectangle_collision
+from torch_threads import one_thread  # noqa: F401
 
 B, STEPS = 4, 20
 CFG = SolverConfig(trajectory_length=12, collision_point_count=12, random_field_points=4,
                    onf=ONFConfig(angle_encoding=True, hidden=16), angle_offset=0.3,
                    init_collision_iteration=5, init_collision_points=32)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Long loops of small tensor ops: one intra-op thread, so that test
-    workers sharing the cores do not spin against each other."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def same(a, b) -> bool:

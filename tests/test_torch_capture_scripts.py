@@ -17,6 +17,8 @@ import sys
 import numpy as np
 import pytest
 
+from torch_threads import one_thread  # noqa: F401
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 SCRIPTS = ("profile_step2_torch", "profile_kernels_torch", "bench_grouped_torch",
            "profile_grouped_torch", "make_city_map_torch")

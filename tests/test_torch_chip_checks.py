@@ -13,21 +13,12 @@ import chip_smoke as cs  # noqa: E402
 from nfopp_tpu_torch import kernels  # noqa: E402
 from nfopp_tpu_torch.models import ONFConfig, init_onf_params, onf_apply  # noqa: E402
 from nfopp_tpu_torch.utils.tree import tree_leaves, tree_map  # noqa: E402
+from torch_threads import one_thread  # noqa: E402, F401
 
 CPU = torch.device("cpu")
 B, M = 3, 40
 POINT, UNIT = 7, 13
 GRAD_TOLS = (2e-4, 2e-5)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Long loops of small tensor ops: one intra-op thread, so that test
-    workers sharing the cores do not spin against each other."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def one(params, x, i=0):

@@ -27,19 +27,10 @@ from nfopp_tpu_torch.plotting import (  # noqa: E402
     plot_field_heatmap,
     plot_planner_data,
 )
+from torch_threads import one_thread  # noqa: E402, F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 CPU = torch.device("cpu")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Long loops of small tensor ops: one intra-op thread, so that test
-    workers sharing the cores do not spin against each other."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def load(name):

@@ -33,18 +33,9 @@ from nfopp_tpu_torch.worlds import (
     pad_obstacle_points,
     two_walls_se2_environment,
 )
+from torch_threads import one_thread  # noqa: F401
 
 BATCH, P = 4, 2
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Long loops of small tensor ops: one intra-op thread, so that test
-    workers sharing the cores do not spin against each other."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def configs(compute_dtype="float32", **kwargs):

@@ -28,16 +28,7 @@ import torch
 
 from nfopp_tpu.baselines import gpmp2 as jax_gpmp2
 from nfopp_tpu_torch.baselines import gpmp2
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Long loops of small tensor ops: one intra-op thread, so that test
-    workers sharing the cores do not spin against each other."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_threads import one_thread  # noqa: F401
 
 
 def block_world():

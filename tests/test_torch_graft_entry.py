@@ -7,6 +7,7 @@ import numpy as np
 import torch
 
 from nfopp_tpu_torch import graft_entry
+from torch_threads import one_thread  # noqa: F401
 
 
 def test_entry_runs_one_step_on_the_cpu():

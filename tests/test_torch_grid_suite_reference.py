@@ -29,6 +29,7 @@ from nfopp_tpu_torch.solver import (
     tracking_init,
 )
 from nfopp_tpu_torch.worlds import GridScenario, corridor, distant_endpoints, grid_collision
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 N, HIDDEN = 24, 32
@@ -44,16 +45,6 @@ def load(path: pathlib.Path, name: str):
 ref = load(ROOT / "nfbench" / "reference" / "grid_suite.py", "grid_suite_reference")
 worlds_module = load(ROOT / "nfbench" / "drivers" / "corridor_worlds.py", "corridor_worlds")
 CONFIG = json.loads((ROOT / "nfbench" / "configs" / "corridor-benchmr.json").read_text())
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Long loops of small tensor ops: one intra-op thread, so that test
-    workers sharing the cores do not spin against each other."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def reference_config(pretraining: int) -> dict:

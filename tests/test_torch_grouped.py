@@ -29,6 +29,7 @@ from nfopp_tpu_torch.worlds import (
     pad_obstacle_points,
     two_walls_se2_environment,
 )
+from torch_threads import one_thread  # noqa: F401
 
 JCFG = JaxSolverConfig(
     trajectory_length=12, collision_point_count=12, random_field_points=4,
@@ -36,16 +37,6 @@ JCFG = JaxSolverConfig(
 )
 CFG = SolverConfig(**{**JCFG._asdict(), "onf": ONFConfig(**JCFG.onf._asdict())})
 N = CFG.trajectory_length
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Long loops of small tensor ops: one intra-op thread, so that test
-    workers sharing the cores do not spin against each other."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 class ReplayNoise:

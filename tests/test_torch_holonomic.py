@@ -41,6 +41,7 @@ from nfopp_tpu_torch.worlds import (
     pad_obstacle_points,
     two_walls_environment,
 )
+from torch_threads import one_thread  # noqa: F401
 
 BATCH = 3
 # make_onf_planner's demo config (solver/api.py:223-237), cut to size
@@ -54,16 +55,6 @@ JCFG = JaxSolverConfig(
 )
 CFG = SolverConfig(**{**JCFG._asdict(), "onf": ONFConfig(**JCFG.onf._asdict())})
 N = CFG.trajectory_length
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Long loops of small tensor ops: one intra-op thread, so that test
-    workers sharing the cores do not spin against each other."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 class ReplayNoise:

@@ -18,22 +18,13 @@ from nfopp_tpu.models import ONFConfig as JaxONFConfig
 from nfopp_tpu.models import init_onf_params as jax_init
 from nfopp_tpu_torch import kernels
 from nfopp_tpu_torch.models import ONFConfig, params_from_jax
+from torch_threads import one_thread  # noqa: F401
 
 CONFIGS = [
     ONFConfig(mean=0.0, sigma=1.0, use_cos=True, angle_encoding=True),
     ONFConfig(mean=1.0, sigma=3.0, use_cos=True, angle_encoding=False),
     ONFConfig(mean=0.0, sigma=1.0, use_cos=False, angle_encoding=False),
 ]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Long loops of small tensor ops: one intra-op thread, so that test
-    workers sharing the cores do not spin against each other."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(autouse=True)

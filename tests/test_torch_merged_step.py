@@ -50,19 +50,10 @@ from nfopp_tpu_torch.worlds import (
     pad_obstacle_points,
     two_walls_se2_environment,
 )
+from torch_threads import one_thread  # noqa: F401
 
 BF16_ULP = 2.0 ** -7
 ACT_TOLS = (2e-4, 2e-5)  # tests/test_merged_step.py:27
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Long loops of small tensor ops: one intra-op thread, so that test
-    workers sharing the cores do not spin against each other."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(autouse=True)

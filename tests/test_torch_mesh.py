@@ -17,7 +17,6 @@ Small solver (N=12, K=12, R=4, hidden 16), as tests/test_torch_batch_planner.py.
 from __future__ import annotations
 
 import argparse
-import os
 import pathlib
 import subprocess
 import sys
@@ -41,6 +40,7 @@ from nfopp_tpu_torch.worlds import (  # noqa: E402
     pad_obstacle_points,
     two_walls_se2_environment,
 )
+from torch_threads import one_thread  # noqa: E402, F401
 
 BATCH = 8  # global batch of the 2-rank run: 4 rows per rank
 GRAD_BATCH = 4  # the gradient check: one group of 4 over 2 rows per rank
@@ -54,16 +54,6 @@ TIMEOUT = 300  # seconds for each rank, and for each of its collectives
 STRADDLE, STRADDLE_GROUP = 12, 4
 LAYOUTS = {"straddle": STRADDLE_GROUP, "crossing": STRADDLE}
 FIELD_TOL = {"rtol": 2e-4, "atol": 2e-5}  # tests/test_field_grad_fused.py's
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Long loops of small tensor ops: one intra-op thread, so that test
-    workers sharing the cores do not spin against each other."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def scene(batch: int):
@@ -291,7 +281,6 @@ def worker(args) -> None:
     from nfopp_tpu_torch.parallel.mesh import COLLECTIVES, reset_collectives
     from nfopp_tpu_torch.solver import restore_state
 
-    torch.set_num_threads(1)
     initialize_distributed(None, 2, args.rank, "gloo",
                            init_method=pathlib.Path(args.init_file).as_uri(), timeout=TIMEOUT)
     mesh = problem_mesh(device="cpu")
@@ -451,14 +440,13 @@ def two_ranks(tmp_path_factory):
     values = np.random.default_rng(0).normal(size=(BATCH, 5)).astype(np.float32)
     np.savez(tmp / "inputs.npz", values=values, u=jax_side["u"], normal=jax_side["normal"],
              straddle_u=jax_side["straddle"]["u"], straddle_normal=jax_side["straddle"]["normal"])
-    env = dict(os.environ, OMP_NUM_THREADS="1")
     logs = [tmp / f"rank{r}.log" for r in range(2)]
     procs = [subprocess.Popen(
         [sys.executable, __file__, "--worker", "--rank", str(r), "--init-file",
          str(tmp / "rendezvous"), "--inputs", str(tmp / "inputs.npz"), "--state",
          str(tmp / "state.npz"), "--straddle-state", str(tmp / "straddle.npz"), "--out",
          str(tmp / "out.npz")],
-        cwd=str(ROOT), env=env, stdout=log.open("w"), stderr=subprocess.STDOUT)
+        cwd=str(ROOT), stdout=log.open("w"), stderr=subprocess.STDOUT)
         for r, log in enumerate(logs)]
     try:
         for p in procs:

@@ -30,6 +30,7 @@ from nfopp_tpu_torch import kernels
 from nfopp_tpu_torch.kernels.common import use_plain
 from nfopp_tpu_torch.models import ONFConfig, params_from_jax
 from nfopp_tpu_torch.utils.tree import tree_leaves
+from torch_threads import one_thread  # noqa: F401
 
 # the four field configurations of chip_smoke.py's check_configs that differ
 # in more than the hidden width
@@ -45,16 +46,6 @@ BF16_ULP = 2.0 ** -7
 FWD_TOLS = (1e-4, 2e-4)  # tests/test_pallas.py:32
 LOSS_TOLS = (1e-5, 1e-6)  # tests/test_field_grad_fused.py:33-46
 GRAD_TOLS = (2e-4, 2e-5)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Long loops of small tensor ops: one intra-op thread, so that test
-    workers sharing the cores do not spin against each other."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(autouse=True)

@@ -12,12 +12,13 @@ replicas stay bit-identical, gathered.
 from __future__ import annotations
 
 import json
-import os
 import pathlib
 import subprocess
 import sys
 
 import pytest
+
+from torch_threads import one_thread  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 SCRIPT = REPO / "scripts" / "run_multihost_torch.py"
@@ -38,8 +39,7 @@ def _launch(tmp: pathlib.Path, name: str, num_processes: int, process_id: int,
     # stdout goes to a file: the ranks wait on each other, so a full pipe on
     # one would stall both
     log = (tmp / f"{name}.log").open("w")
-    return subprocess.Popen(cmd, cwd=str(REPO), env=dict(os.environ, OMP_NUM_THREADS="1"),
-                            stdout=log, stderr=subprocess.STDOUT)
+    return subprocess.Popen(cmd, cwd=str(REPO), stdout=log, stderr=subprocess.STDOUT)
 
 
 def _results(tmp, procs: dict) -> dict:

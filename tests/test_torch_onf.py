@@ -11,6 +11,7 @@ from nfopp_tpu.models import ONFConfig as JaxONFConfig
 from nfopp_tpu.models import init_onf_params as jax_init
 from nfopp_tpu.models import onf_apply as jax_onf_apply
 from nfopp_tpu_torch.models import ONFConfig, init_onf_params, onf_apply, params_from_jax
+from torch_threads import one_thread  # noqa: F401
 
 CONFIGS = [
     ONFConfig(mean=0.0, sigma=1.0, use_cos=True, angle_encoding=True),

@@ -13,6 +13,7 @@ from nfopp_tpu_torch.ops import losses as tl
 from nfopp_tpu_torch.ops import math as tm
 from nfopp_tpu_torch.ops import reparametrize as tr
 from nfopp_tpu_torch.ops import sampling as ts
+from torch_threads import one_thread  # noqa: F401
 
 
 def t(a):

@@ -6,6 +6,7 @@ import torch
 
 from nfopp_tpu.worlds import oracle as jo
 from nfopp_tpu_torch.worlds import car_environment, oracle as to
+from torch_threads import one_thread  # noqa: F401
 
 
 def t(a, dtype=torch.float32):

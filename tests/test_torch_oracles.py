@@ -10,6 +10,7 @@ import torch
 from nfopp_tpu.worlds import oracle as jo
 from nfopp_tpu.worlds import warehouse_polygons
 from nfopp_tpu_torch.worlds import oracle as to
+from torch_threads import one_thread  # noqa: F401
 
 BOUNDS = np.array([0.0, 10.0, 0.0, 10.0], np.float32)
 

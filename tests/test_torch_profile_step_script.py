@@ -13,6 +13,7 @@ import subprocess
 import sys
 
 from nfopp_tpu.solver import run_planner_config as jax_run_planner_config
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 

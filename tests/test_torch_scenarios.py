@@ -12,16 +12,8 @@ from nfopp_tpu.worlds import grid_collision as jax_grid_collision
 from nfopp_tpu.worlds import scenarios as js
 from nfopp_tpu_torch.worlds import grid_collision
 from nfopp_tpu_torch.worlds import scenarios as ts
+from torch_threads import one_thread  # noqa: F401
 
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Long loops of small tensor ops: one intra-op thread, so that test
-    workers sharing the cores do not spin against each other."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 MAP = """type octile
 height 4

@@ -51,16 +51,7 @@ from nfopp_tpu_torch.worlds import (
     rectangle_collision,
     two_walls_se2_environment,
 )
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Long loops of small tensor ops: one intra-op thread, so that test
-    workers sharing the cores do not spin against each other."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_threads import one_thread  # noqa: F401
 
 
 def close(got, want, tol=1e-6):

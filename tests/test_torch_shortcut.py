@@ -23,16 +23,8 @@ from nfopp_tpu_torch.ops.shortcut import (
 )
 from nfopp_tpu_torch.solver.tracking import evaluate_path
 from nfopp_tpu_torch.worlds import GridOracle, grid_collision
+from torch_threads import one_thread  # noqa: F401
 
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Long loops of small tensor ops: one intra-op thread, so that test
-    workers sharing the cores do not spin against each other."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 TRIALS, SAMPLES = 24, 5
 

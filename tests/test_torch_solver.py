@@ -33,6 +33,7 @@ from nfopp_tpu_torch.worlds import (
     pad_obstacle_points,
     rectangle_collision,
 )
+from torch_threads import one_thread  # noqa: F401
 
 BATCH = 2
 JCFG = jax_run_planner_config()._replace(
@@ -40,16 +41,6 @@ JCFG = jax_run_planner_config()._replace(
 )
 CFG = SolverConfig(**{**JCFG._asdict(), "onf": ONFConfig(**JCFG.onf._asdict())})
 N = CFG.trajectory_length
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Long loops of small tensor ops: one intra-op thread, so that test
-    workers sharing the cores do not spin against each other."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 class ReplayNoise:

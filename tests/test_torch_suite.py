@@ -29,16 +29,8 @@ from nfopp_tpu_torch.bench import metrics, native_binding, results, runner
 from nfopp_tpu_torch.bench.runner import run_grid_suite
 from nfopp_tpu_torch.utils.config import AttributeDict
 from nfopp_tpu_torch.worlds.scenarios import GridScenario
+from torch_threads import one_thread  # noqa: F401
 
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Long loops of small tensor ops: one intra-op thread, so that test
-    workers sharing the cores do not spin against each other."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 FAST = dict(max_iterations=100, min_iterations=50, check_freq=25)
 PLANNER = "constrained_onf_planner"

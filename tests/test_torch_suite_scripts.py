@@ -26,19 +26,10 @@ from nfopp_tpu.worlds import random_forest as jax_random_forest
 from nfopp_tpu.worlds import two_walls_se2_environment as jax_two_walls_se2
 from nfopp_tpu_torch.solver import run_planner_config
 from nfopp_tpu_torch.worlds import grid_collision, polygon_collision
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 CPU = torch.device("cpu")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Long loops of small tensor ops: one intra-op thread, so that test
-    workers sharing the cores do not spin against each other."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def load(name):

@@ -18,20 +18,11 @@ from nfopp_tpu_torch.solver import tracking
 from nfopp_tpu_torch.utils import aot, profiling
 from nfopp_tpu_torch.utils.config import AttributeDict
 from nfopp_tpu_torch.worlds import GridOracle, GridScenario, grid_collision
+from torch_threads import one_thread  # noqa: F401
 
 CPU = [torch.profiler.ProfilerActivity.CPU]
 PARTS = ["suite.wavefront", "suite.init", "suite.solve", "suite.shortcut", "suite.restart",
          "suite.evaluate"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Long loops of small tensor ops: one intra-op thread, so that test
-    workers sharing the cores do not spin against each other."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(autouse=True)

@@ -16,6 +16,7 @@ from nfopp_tpu_torch.solver import ConstrainedSolver, SolverConfig, evaluate_pat
 from nfopp_tpu_torch.tools.scene import car_world
 from nfopp_tpu_torch.utils import profiling
 from nfopp_tpu_torch.worlds import rectangle_collision
+from torch_threads import one_thread  # noqa: F401
 
 B = 4
 CFG = SolverConfig(trajectory_length=12, collision_point_count=12, random_field_points=4,

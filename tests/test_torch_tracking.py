@@ -37,18 +37,9 @@ from nfopp_tpu_torch.worlds import (
     pad_obstacle_points,
     rectangle_collision,
 )
+from torch_threads import one_thread  # noqa: F401
 
 CHECK, MIN_ITER, END = 10, 20, 10  # check_freq, min_iterations, chunks
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Long loops of small tensor ops: one intra-op thread, so that test
-    workers sharing the cores do not spin against each other."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 class Moving(NamedTuple):

@@ -12,6 +12,7 @@ from nfopp_tpu.utils import Position2 as JaxPosition2
 from nfopp_tpu.utils import Timer as JaxTimer
 from nfopp_tpu.utils import UniversalFactory as JaxFactory
 from nfopp_tpu_torch.utils import Position2, Timer, UniversalFactory, profiling, timer
+from torch_threads import one_thread  # noqa: F401
 
 
 def poses(rng, n=5):

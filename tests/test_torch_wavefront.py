@@ -23,16 +23,7 @@ from nfopp_tpu_torch.astar import (
     wavefront_path,
 )
 from nfopp_tpu_torch.astar.wavefront import _INF
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Long loops of small tensor ops: one intra-op thread, so that test
-    workers sharing the cores do not spin against each other."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_threads import one_thread  # noqa: F401
 
 
 def random_grids(seed, batch, h, w, density=0.3):
