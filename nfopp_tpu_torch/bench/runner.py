@@ -35,6 +35,7 @@ import torch
 from ..astar.initializer import batched_wavefront_trajectories
 from ..ops.shortcut import shortcut_batch, shortcut_pairs
 from ..parallel import BatchPlanner, batch_sharding, gather_batch, problem_mesh, shard_batch
+from ..parallel.mesh import RowLayout
 from ..solver import ConstrainedSolver, config_from_parameters
 from ..solver.api import DEFAULT_PARAMETERS
 from ..solver.tracking import evaluate_path
@@ -81,7 +82,9 @@ def _shortcut_pass(solver, oracles, paths, lengths, feasible, generator, trials,
     mesh = problem_mesh(device=solver.device) if mesh is None else mesh
     batch, m = paths.shape[:2]
     rows = batch_sharding(mesh, batch)
-    pairs = shortcut_pairs(generator, trials, batch, m, solver.device)[:, rows]
+    pairs = RowLayout(mesh).cut(
+        lambda total: shortcut_pairs(generator, trials, total, m, solver.device),
+        rows.stop - rows.start, axis=1)
     local_oracles = shard_batch(oracles, mesh, batch)
     short = shortcut_batch(solver.oracle_fn, local_oracles,
                            torch.as_tensor(paths[rows], device=solver.device), pairs, trials,

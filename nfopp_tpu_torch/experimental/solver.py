@@ -174,7 +174,7 @@ class ExperimentalConstrainedSolver(ConstrainedSolver):
         `<prefix>-batch-b<B>-p<P>`, with kernels 4, 5, 3a and 3b inside it."""
         freq = self.config.reparametrize_trajectory_freq
         _check_chunkable("run_batch", num_steps, freq)
-        if self.mesh is not None and self.mesh.size > 1:
+        if self.layout.mesh.size > 1:
             raise NotImplementedError(
                 "run_batch runs on one device: JAX runs it only on one (bench.py:275) and its "
                 "BatchPlanner has no route to it; on a mesh of ranks use run or run_grouped"

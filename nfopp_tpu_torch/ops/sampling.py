@@ -45,21 +45,19 @@ class GeneratorNoise:
 
 
 class ShardNoise:
-    """Noise source of one rank's rows of a sharded batch: each [b, ...]
-    block is drawn as the whole [total, ...] block from `source` (seeded the
-    same on every rank) and cut to rows `rows`, so problem i's stream does
-    not depend on how many ranks share the batch."""
+    """Noise source of one rank's `batch` rows of a sharded batch: each
+    [batch, ...] block is drawn as the block of the global batch from
+    `source` (seeded the same on every rank) and cut to this rank's rows by
+    `layout` (`parallel.mesh.RowLayout.cut`), so problem i's stream does not
+    depend on how many ranks share the batch."""
 
-    def __init__(self, source, rows: slice, total: int):
-        self.source = GeneratorNoise(source) if isinstance(source, torch.Generator) else source
-        self.rows = rows
-        self.total = total
+    def __init__(self, source, layout, batch: int):
+        self.source, self.layout, self.batch = source, layout, batch
 
     def _rows(self, draw, shape, device) -> torch.Tensor:
-        if shape[0] != len(range(self.total)[self.rows]):
-            raise ValueError(f"a block of {shape[0]} rows drawn for rows {self.rows} of "
-                             f"{self.total}")
-        return draw((self.total,) + tuple(shape[1:]), device)[self.rows]
+        if shape[0] != self.batch:
+            raise ValueError(f"a block of {shape[0]} rows drawn for a rank of {self.batch}")
+        return self.layout.cut(lambda total: draw((total,) + tuple(shape[1:]), device), self.batch)
 
     def uniform(self, shape, device) -> torch.Tensor:
         return self._rows(self.source.uniform, shape, device)

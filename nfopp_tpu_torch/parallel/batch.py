@@ -43,7 +43,7 @@ from ..solver.tracking import (
 )
 from ..utils.device import check_device
 from ..utils.tree import tree_map
-from .mesh import all_over_problems, barrier, gather_batch, problem_mesh, shard_batch
+from .mesh import RowLayout, all_over_problems, barrier, gather_batch, problem_mesh, shard_batch
 
 __all__ = ["BatchPlanner"]
 
@@ -76,8 +76,7 @@ class BatchPlanner:
         self.mesh = problem_mesh(device=self.device) if mesh is None else mesh
         if self.mesh.device != self.device:
             raise ValueError(f"a mesh on {self.mesh.device} for a solver on {self.device}")
-        if self.mesh.distributed:
-            solver = solver.with_mesh(self.mesh)
+        solver = solver.with_mesh(self.mesh)
         # aot_prefix routes every solve (run, run_grouped, the tracked loops)
         # and every init's pretraining through captured programs keyed by
         # prefix, solver config, group size, dtype and argument shapes;
@@ -153,7 +152,8 @@ class BatchPlanner:
         if not hasattr(self.solver, "run_grouped"):
             raise NotImplementedError("solver has no shared-field mode")
         batch = len(starts)
-        _check_groups(batch, group_size, self._put(bounds), self._put(oracle_params))
+        _check_groups(RowLayout.alone(self.device), batch, group_size, self._put(bounds),
+                      self._put(oracle_params))
         return self.solver.init_state(
             generator, self._local(starts, batch), self._local(goals, batch),
             self._local(bounds, batch), self._local(oracle_params, batch), group_size=group_size,

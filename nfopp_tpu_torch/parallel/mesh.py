@@ -14,7 +14,9 @@ ranks only where the JAX program would communicate:
     loss = mean_over_problems(values, mesh)   # local sum + all_reduce
 
 A mesh of size 1 needs no process group (the single-card behaviour). Where a
-process group exists, its collectives run even at size 1. Collectives over
+process group exists, its collectives run even at size 1. A `RowLayout`
+(a solver's `layout`) decides which rows of a global batch a rank holds
+and how a block drawn for the global batch is cut to them. Collectives over
 the gloo backend move their tensors through the host (gloo's CUDA support
 covers only broadcast and all_reduce); `COLLECTIVES` counts every collective
 of this module and the host seconds spent in it.
@@ -22,10 +24,11 @@ of this module and the host seconds spent in it.
 from __future__ import annotations
 
 import datetime
+import functools
 import os
 import time
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -39,6 +42,7 @@ __all__ = [
     "BATCH_AXIS",
     "COLLECTIVES",
     "ProblemMesh",
+    "RowLayout",
     "all_over_problems",
     "any_over_problems",
     "barrier",
@@ -111,14 +115,115 @@ def problem_mesh(device=None, group=None) -> ProblemMesh:
     return ProblemMesh(group, dist.get_rank(group), dist.get_world_size(group), device)
 
 
+@functools.lru_cache(maxsize=1024)
+def _segments(first: int, batch: int, group_size: int) -> tuple:
+    """(group, lo, hi) for each group of `group_size` consecutive global rows
+    that rows first .. first+batch-1 touch: rows [lo, hi) of the `batch`
+    lie in it."""
+    cuts = range(first // group_size * group_size, first + batch, group_size)
+    return tuple((c // group_size, max(c - first, 0), min(c + group_size - first, batch))
+                 for c in cuts)
+
+
+@functools.lru_cache(maxsize=1024)
+def _crossing_groups(spans: tuple, group_size: int) -> tuple:
+    """The groups of which more than one rank holds rows (`spans`: every
+    rank's rows [lo, hi) of the global batch), in order: one slot each on
+    the wire of the solver's group mean."""
+    holders: dict = {}
+    for lo, hi in spans:
+        for group, _, _ in (_segments(lo, hi - lo, group_size) if hi > lo else ()):
+            holders[group] = holders.get(group, 0) + 1
+    return tuple(sorted(g for g, n in holders.items() if n > 1))
+
+
+@dataclass(frozen=True)
+class RowLayout:
+    """Which rows of a global batch each rank of `mesh` holds: `spans`, every
+    rank's rows [lo, hi) from 0 to the global batch (a rank may hold none),
+    or None for the even split, rank r holding [r*b, (r+1)*b) (as JAX's
+    NamedSharding gives device r). Methods taking `batch` answer for the
+    global batch of which this rank holds `batch` rows."""
+
+    mesh: ProblemMesh
+    spans: tuple | None = None
+
+    @classmethod
+    def alone(cls, device) -> RowLayout:
+        """This process alone, whatever process group exists."""
+        return cls(ProblemMesh(None, 0, 1, torch.device(device)))
+
+    def with_rows(self, spans) -> RowLayout:
+        """This layout with the ranks' rows `spans`, checked."""
+        spans = tuple((int(lo), int(hi)) for lo, hi in spans)
+        if len(spans) != self.mesh.size or spans[0][0] != 0 or any(
+                a[1] != b[0] for a, b in zip(spans, spans[1:])) or any(
+                lo > hi for lo, hi in spans):
+            raise ValueError(f"spans {spans} do not split a global batch over the mesh's "
+                             f"{self.mesh.size} ranks")
+        return RowLayout(self.mesh, spans)
+
+    def spans_of(self, batch: int) -> tuple:
+        """Every rank's rows of the global batch."""
+        if self.spans is None:
+            return tuple((r * batch, (r + 1) * batch) for r in range(self.mesh.size))
+        lo, hi = self.spans[self.mesh.rank]
+        if hi - lo != batch:
+            raise ValueError(f"a batch of {batch} on rank {self.mesh.rank}, whose rows are "
+                             f"{lo}:{hi} of {self.spans[-1][1]}")
+        return self.spans
+
+    def first(self, batch: int) -> int:
+        """The global row of this rank's first row."""
+        return self.spans_of(batch)[self.mesh.rank][0]
+
+    def block_rows(self, batch: int, per: int = 1) -> tuple[int, slice]:
+        """(global block's rows, this rank's of them), a row per `per` problems."""
+        first = self.first(batch)
+        lo = first // per
+        hi = (first + batch - 1) // per + 1 if batch else lo
+        return self.spans_of(batch)[-1][1] // per, slice(lo, hi)
+
+    def cut(self, draw: Callable[[int], Any], batch: int, per: int = 1, axis: int = 0) -> Any:
+        """`draw(rows)`, a tree drawn for the global block (a row per `per`
+        problems along `axis`), cut to this rank's rows: a problem's draws do
+        not depend on how many ranks share the batch."""
+        total, rows = self.block_rows(batch, per)
+        return tree_map(lambda x: x[(slice(None),) * axis + (rows,)], draw(total))
+
+    def group_index(self, batch: int, group_size: int, device) -> torch.Tensor:
+        """Each of this rank's rows' group, counted from this rank's first."""
+        first = self.first(batch)
+        rows = torch.arange(first, first + batch, device=device)
+        return torch.div(rows, group_size, rounding_mode="floor") - first // group_size
+
+    def segments(self, batch: int, group_size: int) -> tuple:
+        """(group, lo, hi): this rank's rows [lo, hi) of each group it holds."""
+        return _segments(self.first(batch), batch, group_size)
+
+    def crossing_groups(self, batch: int, group_size: int) -> tuple:
+        """The groups whose rows more than one rank holds."""
+        return _crossing_groups(self.spans_of(batch), group_size)
+
+    def check_group_size(self, batch: int, group_size: int) -> None:
+        """A group size divides the global batch, as in JAX."""
+        total = self.spans_of(batch)[-1][1]
+        if group_size < 1 or total % group_size != 0:
+            what = "batch" if total == batch else "global batch"
+            raise ValueError(f"{what} {total} not divisible by group_size {group_size}")
+
+    def within(self, lo: int, hi: int, batch: int) -> tuple:
+        """Every rank's rows of the global rows [lo, hi), counted from lo."""
+        return tuple((min(max(a - lo, 0), hi - lo), min(max(b - lo, 0), hi - lo))
+                     for a, b in self.spans_of(batch))
+
+
 def batch_sharding(mesh: ProblemMesh, batch: int) -> slice:
-    """The rows of a global batch of `batch` problems this rank owns: rank i
-    holds [i*b, (i+1)*b), as JAX's NamedSharding(PartitionSpec('problems'))
-    gives device i."""
+    """The rows of a global batch of `batch` problems this rank owns, split
+    evenly (`RowLayout`)."""
     if batch % mesh.size != 0:
         raise ValueError(f"global batch {batch} not divisible by the mesh size {mesh.size}")
-    b = batch // mesh.size
-    return slice(mesh.rank * b, (mesh.rank + 1) * b)
+    return slice(*RowLayout(mesh).spans_of(batch // mesh.size)[mesh.rank])
 
 
 def shard_batch(tree: Any, mesh: ProblemMesh, batch: int | None = None) -> Any:

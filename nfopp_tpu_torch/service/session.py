@@ -29,13 +29,13 @@ with subgroups=S takes S sources, one per sub-fleet (`subfleet_generators`
 makes them from one seed), so sub-fleet s equals an independent session of
 its robots with source s.
 
-Mesh: over a solver made by `with_mesh` (as `BatchPlanner(solver, mesh)`
-holds it) the fleet sessions take this rank's rows of the states, the goals
-and per-robot oracles of the whole fleet, and return this rank's states and
-the traces of the whole fleet (gathered once at the end). Each rank's
-bursts draw their rows of the block drawn for the whole (sub-)fleet, and a
-shared field whose robots several ranks hold averages over all of them
-(`_FieldSolver.with_mesh`). Sub-fleets may lie anywhere across the ranks:
+Mesh: over a solver whose `layout` holds one rank's rows (`with_mesh`, as
+`BatchPlanner(solver, mesh)` holds it) the fleet sessions take this rank's
+rows of the states, the goals and per-robot oracles of the whole fleet, and
+return this rank's states and the traces of the whole fleet (gathered once
+at the end). Each rank's bursts draw their rows of the block drawn for the
+whole (sub-)fleet, and a shared field whose robots several ranks hold
+averages over all of them (`_FieldSolver.with_mesh`). Sub-fleets may lie anywhere across the ranks:
 a rank runs each sub-fleet's burst on the rows of it that it holds (a
 `with_rows` copy of the solver, which knows every rank's rows of the
 sub-fleet), and a rank that holds none of a sub-fleet's robots joins that
@@ -112,21 +112,9 @@ def _stack(traces: list, lead: tuple) -> torch.Tensor:
     return stacked.reshape(lead + tuple(stacked.shape[1:]))
 
 
-def _mesh_rows(solver, local: int) -> tuple[int, int]:
-    """(first global row of this rank, global batch) of a fleet of which
-    this rank holds `local` robots."""
-    mesh = getattr(solver, "mesh", None)
-    if mesh is None:
-        return 0, local
-    return mesh.rank * local, mesh.size * local
-
-
 def _gather_robots(aux: tuple, solver, axis: int) -> tuple:
     """The traces of every rank's robots, the robot axis `axis` gathered."""
-    mesh = getattr(solver, "mesh", None)
-    if mesh is None:
-        return aux
-    gathered = gather_batch(tuple(x.movedim(axis, 0) for x in aux), mesh)
+    gathered = gather_batch(tuple(x.movedim(axis, 0) for x in aux), solver.layout.mesh)
     return type(aux)(*(x.movedim(0, axis) for x in gathered))
 
 
@@ -239,7 +227,7 @@ def fleet_dynamic_session(
     `dynamic_replan_session`. Traces are per robot ([C, R, ...]).
     """
     _check_steps(solver, steps_per_cycle)
-    first, _ = _mesh_rows(solver, states.start.shape[0])
+    first = solver.layout.first(states.start.shape[0])
     goals = _f32(goals, states.start)[first:first + states.start.shape[0]]
     states, aux = _dynamic_cycles(
         solver, states, oracle_builder, oracle_xs, goals, step_dist, goal_tolerance,
@@ -335,8 +323,8 @@ def fleet_replan_session(
     (see the module) `goals` and per-robot oracles cover the whole fleet.
     """
     _check_steps(solver, steps_per_cycle)
-    local = states.start.shape[0]
-    first, robots = _mesh_rows(solver, local)
+    local, layout = states.start.shape[0], solver.layout
+    first, robots = layout.first(local), layout.spans_of(local)[-1][1]
     goals = _f32(goals, states.start)[:, first:first + local]
     oracle_params = tree_rows(oracle_params, first, first + local, batch=robots)
     sources = [noise]
@@ -353,16 +341,12 @@ def fleet_replan_session(
             raise ValueError(f"subgroups={subgroups} needs one noise source per sub-fleet, "
                              f"got {len(sources)}")
     sub = robots // subgroups
-    mesh = getattr(solver, "mesh", None)
-    size = 1 if mesh is None else mesh.size
     parts, oracles, rows, bursts = [], [], [], []
     for s, source in enumerate(sources):
-        lo, hi = max(s * sub, first), min((s + 1) * sub, first + local)
-        part = solver
-        if mesh is not None:  # every rank's rows of sub-fleet s
-            part = solver.with_rows([(min(max(r * local - s * sub, 0), sub),
-                                      min(max((r + 1) * local - s * sub, 0), sub))
-                                     for r in range(size)])
+        spans = layout.within(s * sub, (s + 1) * sub, local)  # every rank's rows of sub-fleet s
+        part = solver.with_rows(spans)
+        a, b = spans[layout.mesh.rank]
+        lo, hi = s * sub + a, s * sub + b
         if lo >= hi:  # the burst's collectives, on a wire of one problem's field
             width = sum(x[0].numel() for x in tree_leaves(states.field_params))
             parts.append(None)

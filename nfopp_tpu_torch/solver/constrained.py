@@ -23,19 +23,18 @@ start identical (`init_state(group_size=...)`) and step on the group's mean
 field gradient. The run loop and the field update are shared with
 `HolonomicSolver` through `_FieldSolver`.
 
-`with_mesh(mesh)` makes a copy whose batches are one rank's rows of a batch
-sharded over a problem mesh (`parallel/mesh.py`): every random block is drawn
-whole from a generator seeded alike on every rank and cut to this rank's
-rows, and the run loop's host decision is agreed by all ranks. A group may
-lie anywhere in the global batch, as in JAX (any group_size dividing it):
-the groups whose rows more than one rank holds average their gradients with
-one all_reduce per field step, every other group averages on its rank.
-`with_rows(spans)` gives the ranks uneven rows (a sub-fleet's burst).
+A solver's `layout` (`parallel.mesh.RowLayout`; by default this process
+alone) says which rows of a global batch its batches are. `with_mesh(mesh)`
+makes a copy whose batches are one rank's rows of a batch sharded over a
+problem mesh: every random block is cut from the global batch's
+(`RowLayout.cut`), and the run loop's host decision is agreed by all ranks.
+A group may lie anywhere in the global batch, as in JAX: the groups whose
+rows more than one rank holds average their gradients with one all_reduce
+per field step. `with_rows(spans)` gives the ranks uneven rows.
 """
 from __future__ import annotations
 
 import copy
-import functools
 from typing import Any, Callable, NamedTuple
 
 import numpy as np
@@ -57,8 +56,9 @@ from ..ops.reparametrize import (
     reparametrize_se2,
 )
 from ..ops.sampling import GeneratorNoise, ShardNoise, uniform_box_points
-from ..parallel.mesh import all_over_problems, sum_over_ranks
+from ..parallel.mesh import RowLayout, all_over_problems, sum_over_ranks
 from ..utils import profiling
+from ..utils.aot import between_replays
 from ..utils.device import check_device
 from ..utils.tree import tree_copy_, tree_leaves, tree_map, tree_where
 from .adam import AdamState, adam_init, adam_update
@@ -93,28 +93,6 @@ def _group_rows(tree: Any, batch: int, rows: torch.Tensor) -> Any:
     return tree_map(pick, tree)
 
 
-@functools.lru_cache(maxsize=1024)
-def _segments(first: int, batch: int, group_size: int) -> tuple:
-    """(group, lo, hi) for each group of `group_size` consecutive global rows
-    that rows first .. first+batch-1 touch: rows [lo, hi) of the `batch`
-    lie in it."""
-    cuts = range(first // group_size * group_size, first + batch, group_size)
-    return tuple((c // group_size, max(c - first, 0), min(c + group_size - first, batch))
-                 for c in cuts)
-
-
-@functools.lru_cache(maxsize=1024)
-def _crossing_groups(spans: tuple, group_size: int) -> tuple:
-    """The groups of which more than one rank holds rows (`spans`: every
-    rank's rows [lo, hi) of the global batch), in order: one slot each on
-    the wire of `_FieldSolver._group_mean_grads`."""
-    holders: dict = {}
-    for lo, hi in spans:
-        for group, _, _ in (_segments(lo, hi - lo, group_size) if hi > lo else ()):
-            holders[group] = holders.get(group, 0) + 1
-    return tuple(sorted(g for g, n in holders.items() if n > 1))
-
-
 def _group_mean(g: torch.Tensor, group_size: int) -> torch.Tensor:
     """Mean over each group of `group_size` consecutive batch rows, broadcast
     back to the full batch shape (every replica gets the same bits), in
@@ -124,19 +102,15 @@ def _group_mean(g: torch.Tensor, group_size: int) -> torch.Tensor:
     return mean.expand(grouped.shape).reshape(g.shape).contiguous()
 
 
-def _check_groups(batch: int, group_size: int, bounds: torch.Tensor, oracle_params: Any,
-                  first: int | None = None) -> None:
+def _check_groups(layout: RowLayout, batch: int, group_size: int, bounds: torch.Tensor,
+                  oracle_params: Any) -> None:
     """A shared-field group is one map: every problem of a group has the same
-    bounds and oracle leaves (`parallel/batch.py:208-224`). With `first` the
-    rows are a rank's, global rows first .. first+batch-1, each group checked
-    as far as the rank holds it; without, the whole batch, which the groups
-    divide."""
-    if first is None:
-        if group_size < 1 or batch % group_size != 0:
-            raise ValueError(f"batch {batch} not divisible by group {group_size}")
-        first = 0
+    bounds and oracle leaves (`parallel/batch.py:208-224`). The rows are
+    `layout`'s of this rank, each group checked as far as the rank holds it,
+    and the group size divides the global batch."""
+    layout.check_group_size(batch, group_size)
     # each row's group's first row among these
-    lead = torch.tensor([lo for _, lo, hi in _segments(first, batch, group_size)
+    lead = torch.tensor([lo for _, lo, hi in layout.segments(batch, group_size)
                          for _ in range(hi - lo)])
     for name, tree in (("oracle_params", oracle_params), ("bounds", bounds)):
         for leaf in tree_leaves(tree):
@@ -197,13 +171,13 @@ class _FieldSolver:
     """
 
     _pose_dim = 3
-    # set by `with_mesh`: the problem mesh whose ranks each hold rows of the batch
-    mesh = None
 
     def __init__(self, config: SolverConfig, oracle_fn: OracleFn, device, who: str):
         self.config = config
         self.oracle_fn = oracle_fn
         self.device = check_device(device, who)
+        # which rows of a global batch this solver's batches are
+        self.layout = RowLayout.alone(self.device)
         n = config.trajectory_length
         self._inv_hessian = torch.as_tensor(
             inverse_velocity_hessian(n, config.velocity_hessian_weight), device=self.device
@@ -231,100 +205,43 @@ class _FieldSolver:
 
     def with_mesh(self, mesh):
         """A copy of this solver whose batches hold one rank's rows of a
-        batch sharded over `mesh` (`parallel.mesh.ProblemMesh`): the rows
-        [rank*b, (rank+1)*b) of a global batch of mesh.size*b problems."""
+        batch split evenly over `mesh` (`parallel.mesh.ProblemMesh`)."""
         solver = copy.copy(self)
-        solver.mesh = mesh
-        solver.spans = None
+        solver.layout = RowLayout(mesh)
         return solver
-
-    # set by `with_rows`: every rank's rows of this copy's global batches
-    spans: tuple | None = None
 
     def with_rows(self, spans):
-        """A copy of this mesh solver whose batches are this rank's rows of a
-        global batch that the ranks hold unevenly: `spans` gives every rank's
-        rows [lo, hi), in rank order, from 0 to the global batch (a rank may
-        hold none). A sub-fleet's burst runs on such a copy."""
-        spans = tuple((int(lo), int(hi)) for lo, hi in spans)
-        if self.mesh is None or len(spans) != self.mesh.size or spans[0][0] != 0 or any(
-                a[1] != b[0] for a, b in zip(spans, spans[1:])) or any(
-                lo > hi for lo, hi in spans):
-            raise ValueError(f"spans {spans} do not split a global batch over the mesh's "
-                             f"{1 if self.mesh is None else self.mesh.size} ranks")
+        """A copy of this solver whose batches are this rank's rows of a
+        global batch that the ranks of its mesh hold unevenly: `spans` gives
+        every rank's rows [lo, hi), in rank order, from 0 to the global batch
+        (a rank may hold none). A sub-fleet's burst runs on such a copy."""
         solver = copy.copy(self)
-        solver.spans = spans
+        solver.layout = self.layout.with_rows(spans)
         return solver
-
-    def _spans(self, batch: int) -> tuple:
-        """Every rank's rows [lo, hi) of the global batch of which this rank
-        holds `batch`: the `with_rows` spans, or the mesh's even split."""
-        if self.spans is not None:
-            lo, hi = self.spans[self.mesh.rank]
-            if hi - lo != batch:
-                raise ValueError(f"a batch of {batch} on rank {self.mesh.rank}, whose rows "
-                                 f"are {lo}:{hi} of {self.spans[-1][1]}")
-            return self.spans
-        size = 1 if self.mesh is None else self.mesh.size
-        return tuple((r * batch, (r + 1) * batch) for r in range(size))
-
-    def _first_row(self, batch: int) -> int:
-        """The global row of this rank's first of `batch` rows."""
-        return self._spans(batch)[0 if self.mesh is None else self.mesh.rank][0]
-
-    def _block_rows(self, batch: int, per: int = 1) -> tuple[int, slice]:
-        """(rows of the global block, this rank's rows of it) for a block
-        with one row per `per` consecutive problems, this rank holding
-        `batch` problems."""
-        first = self._first_row(batch)
-        lo, hi = first // per, (first + batch - 1) // per + 1
-        return self._spans(batch)[-1][1] // per, slice(lo, hi)
 
     def _rand(self, generator: torch.Generator, batch: int, shape: tuple, per: int = 1):
         """Uniform draws [rows, *shape] from `generator`, one row per `per`
         problems: this rank's rows of the block drawn for the global batch."""
-        total, rows = self._block_rows(batch, per)
-        u = torch.rand((total,) + tuple(shape), generator=generator, device=generator.device)
-        return u[rows].to(self.device)
-
-    def _group_of_rows(self, batch: int, group_size: int) -> torch.Tensor:
-        """For each of this rank's `batch` rows, its group's index among the
-        groups of `group_size` whose rows this rank holds."""
-        first = self._first_row(batch)
-        rows = torch.arange(first, first + batch, device=self.device)
-        return torch.div(rows, group_size, rounding_mode="floor") - first // group_size
-
-    def _group_firsts(self, batch: int, group_size: int) -> torch.Tensor:
-        """This rank's first row in each group of `group_size` it holds rows
-        of."""
-        segments = _segments(self._first_row(batch), batch, group_size)
-        return torch.tensor([lo for _, lo, _ in segments], device=self.device)
+        u = self.layout.cut(lambda total: torch.rand((total,) + tuple(shape), generator=generator,
+                                                     device=generator.device), batch, per)
+        return u.to(self.device)
 
     def _init_field(self, generator: torch.Generator, batch: int, group_size: int = 1):
         """Field parameters of `batch` problems, drawn once per group of
         `group_size` over the global batch and repeated over this rank's rows
         of each group."""
-        total, rows = self._block_rows(batch, group_size)
-        params = init_onf_params(generator, self.config.onf, total, self.device)
-        index = self._group_of_rows(batch, group_size)
-        return tree_map(lambda x: x[rows][index], params)
+        params = self.layout.cut(lambda total: init_onf_params(
+            generator, self.config.onf, total, self.device), batch, group_size)
+        index = self.layout.group_index(batch, group_size, self.device)
+        return tree_map(lambda x: x[index], params)
 
     def _noise(self, noise, batch: int):
         """The noise source of a step of `batch` problems: on a mesh, this
         rank's rows of every block drawn for the global batch."""
         noise = _as_noise(noise)
-        if self.mesh is None or self.mesh.size == 1 or isinstance(noise, ShardNoise):
+        if self.layout.mesh.size == 1 or isinstance(noise, ShardNoise):
             return noise
-        total, rows = self._block_rows(batch)
-        return ShardNoise(noise, rows, total)
-
-    def _check_group_size(self, batch: int, group_size: int) -> None:
-        """A group size divides the global batch, as in JAX; its groups may
-        lie anywhere across the ranks' rows."""
-        total = self._spans(batch)[-1][1]
-        if group_size < 1 or total % group_size != 0:
-            what = "batch" if total == batch else "global batch"
-            raise ValueError(f"{what} {total} not divisible by group_size {group_size}")
+        return ShardNoise(noise, self.layout, batch)
 
     def _group_mean_grads(self, grads, batch: int, group_size: int):
         """Each group's mean gradient on every replica. A group whose rows
@@ -337,10 +254,10 @@ class _FieldSolver:
         by group_size is the group's mean, the same bits on every rank. A
         rank makes this collective whenever any group crosses ranks, even
         with none of its own rows in one."""
-        slots = _crossing_groups(self._spans(batch), group_size)
+        slots = self.layout.crossing_groups(batch, group_size)
         if not slots:  # every group lies inside one rank
             return tree_map(lambda g: _group_mean(g, group_size), grads)
-        segments = _segments(self._first_row(batch), batch, group_size)
+        segments = self.layout.segments(batch, group_size)
         # this rank's rows of groups that cross ranks (at most its first and
         # last group), and the whole groups between them
         crossing = [(slots.index(group), lo, hi) for group, lo, hi in segments if group in slots]
@@ -350,7 +267,7 @@ class _FieldSolver:
         wire = torch.zeros((len(slots), sum(widths)), dtype=leaves[0].dtype, device=self.device)
         for slot, lo, hi in crossing:
             wire[slot] = torch.cat([torch.sum(g[lo:hi], dim=0).reshape(-1) for g in leaves])
-        mean = self._sum_over_ranks(wire) / group_size
+        mean = between_replays(wire, lambda x: sum_over_ranks(x, self.layout.mesh)) / group_size
         crossed = {slot: torch.split(mean[slot], widths) for slot, _, _ in crossing}
 
         def average(i, g):
@@ -368,13 +285,6 @@ class _FieldSolver:
         averaged = iter([average(i, g) for i, g in enumerate(leaves)])
         return tree_map(lambda _: next(averaged), grads)
 
-    def _sum_over_ranks(self, wire: torch.Tensor) -> torch.Tensor:
-        """The wire summed over the ranks: a host step between the segments
-        of a captured program (`utils.aot.between_replays`)."""
-        from ..utils.aot import between_replays
-
-        return between_replays(wire, lambda x: sum_over_ranks(x, self.mesh))
-
     def join_grouped(self, num_steps: int, group_size: int, width: int) -> None:
         """This rank's part in a `run_grouped` of `num_steps` steps over a
         copy made by `with_rows` in which it holds no rows: the burst's
@@ -382,7 +292,7 @@ class _FieldSolver:
         with an empty wire of `width` (a problem's field, flattened), so
         that the ranks that hold rows meet in theirs. The field steps are
         those of `_chunks`' schedule (`static_schedule`)."""
-        slots = _crossing_groups(self.spans, group_size)
+        slots = self.layout.crossing_groups(0, group_size)
         if not slots:
             return
         wire = torch.zeros((len(slots), width), device=self.device)
@@ -390,7 +300,7 @@ class _FieldSolver:
                                    self._static_field_stride())
         for _, with_field in schedule:
             if with_field:
-                sum_over_ranks(wire, self.mesh)
+                sum_over_ranks(wire, self.layout.mesh)
 
     # ------------------------------------------------------------------ init
 
@@ -406,7 +316,8 @@ class _FieldSolver:
         equal, and it captures too."""
         cfg = self.config
         batch = state.start.shape[0]
-        firsts = self._group_firsts(batch, group_size)
+        firsts = torch.tensor([lo for _, lo, _ in self.layout.segments(batch, group_size)],
+                              device=self.device)
         carry = _group_rows((state.field_params, state.field_opt_state), batch, firsts)
         bounds = state.bounds[firsts]
         oracle_params = _group_rows(oracle_params, batch, firsts)
@@ -439,7 +350,7 @@ class _FieldSolver:
             for _ in range(cfg.init_collision_iteration):
                 carry = program(carry, bounds, oracle_params, generator)
         # a new tensor per leaf: on the card the carry is the program's buffers
-        index = self._group_of_rows(batch, group_size)
+        index = self.layout.group_index(batch, group_size, self.device)
         params, opt_state = tree_map(lambda x: x[index], carry)
         return state._replace(field_params=params, field_opt_state=opt_state)
 
@@ -556,7 +467,7 @@ class _FieldSolver:
         """
         freq = self.config.reparametrize_trajectory_freq
         with profiling.span("run", steps=num_steps, batch=state.start.shape[0]) as span:
-            aligned = freq > 1 and all_over_problems(state.step_count % freq == 0, self.mesh)
+            aligned = freq > 1 and all_over_problems(state.step_count % freq == 0, self.layout.mesh)
             static = aligned and num_steps % freq == 0
             if span is not None:
                 span.attrs["schedule"] = "static" if static else "dynamic"
@@ -633,8 +544,8 @@ class _FieldSolver:
         group sums into a fixed buffer, the host runs `sum_over_ranks` on it
         between the replays, and the next segment reads the result from a
         fixed buffer: a chunk of freq field steps costs freq collectives, as
-        eagerly, and freq + 1 replays. A program's key holds the mesh's rank
-        and size and the ranks' rows (`with_rows`), besides the shapes."""
+        eagerly, and freq + 1 replays. A program's key holds the solver's
+        row layout, besides the shapes."""
         solver = copy.copy(self)
         solver.aot_prefix = prefix
         solver.aot_events = []
@@ -650,19 +561,18 @@ class _FieldSolver:
     def _program(self, name: str, body: Callable, args: tuple, *key_parts):
         """The captured program `<aot_prefix>-<name>` of `body` on `args`,
         listed once per key in `aot_events`. The key holds the class, the
-        oracle, the config, the step order, the precision, the mesh layout
-        (rank, size, `with_rows` spans), the arguments' shapes and
+        oracle, the config, the step order, the precision, the row layout
+        (`layout`: mesh, rank, size, spans), the arguments' shapes and
         `key_parts`. The key's building and the store's lookup (or the
         capture) are a `program` span."""
         from ..utils.aot import aot_or_compile, shape_digest
 
         cfg = self.config
-        layout = None if self.mesh is None else (self.mesh.rank, self.mesh.size, self.spans)
         with profiling.span("program", program=f"{self.aot_prefix}-{name}") as span:
             program = aot_or_compile(
                 f"{self.aot_prefix}-{name}", body, args, type(self).__name__,
-                repr(self.oracle_fn), cfg, self._step_order(), cfg.onf.compute_dtype, layout,
-                *map(shape_digest, args), *key_parts,
+                repr(self.oracle_fn), cfg, self._step_order(), cfg.onf.compute_dtype,
+                self.layout, *map(shape_digest, args), *key_parts,
             )
             if span is not None:
                 span.attrs["loaded"] = program.loaded
@@ -787,8 +697,7 @@ class ConstrainedSolver(_FieldSolver):
             start, goal, bounds = self._tensor(start), self._tensor(goal), self._tensor(bounds)
             batch = start.shape[0]
             if group_size != 1:
-                self._check_group_size(batch, group_size)
-                _check_groups(batch, group_size, bounds, oracle_params, self._first_row(batch))
+                _check_groups(self.layout, batch, group_size, bounds, oracle_params)
             trajectory = (self.initial_trajectory(start, goal) if trajectory is None
                           else self._tensor(trajectory))
             field_params = self._init_field(generator, batch, group_size)
@@ -939,7 +848,7 @@ class ConstrainedSolver(_FieldSolver):
         """
         freq = self.config.reparametrize_trajectory_freq
         _check_chunkable("run_grouped", num_steps, freq)
-        self._check_group_size(states.trajectory.shape[0], group_size)
+        self.layout.check_group_size(states.trajectory.shape[0], group_size)
         self._check_static_field_stride("shared-field mode")
         with profiling.span("run", steps=num_steps, batch=states.trajectory.shape[0],
                             schedule="static", group_size=group_size):

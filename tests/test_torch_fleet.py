@@ -146,6 +146,9 @@ class StandIn:
     def __init__(self):
         self.calls = []
 
+    def with_mesh(self, mesh):
+        return self
+
     def init_state(self, generator, start, goal, bounds, oracle, trajectory=None,
                    group_size=None):
         self.calls.append(("init", group_size))

@@ -20,6 +20,7 @@ from nfopp_tpu_torch.astar.initializer import batched_wavefront_trajectories
 from nfopp_tpu_torch.bench import runner
 from nfopp_tpu_torch.models import ONFConfig
 from nfopp_tpu_torch.ops.shortcut import shortcut_batch
+from nfopp_tpu_torch.parallel.mesh import RowLayout
 from nfopp_tpu_torch.solver import (
     ConstrainedSolver,
     SolverConfig,
@@ -183,6 +184,7 @@ class MovingSolver:
     step, so that the loop's bookkeeping is seen on known paths."""
 
     oracle_fn = staticmethod(grid_collision)
+    layout = RowLayout.alone("cpu")
 
     def run(self, state, oracle_params, num_steps, noise):
         return state._replace(trajectory=state.trajectory + num_steps * state.velocity,

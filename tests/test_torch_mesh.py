@@ -31,7 +31,7 @@ sys.path.insert(0, str(ROOT))
 
 from nfopp_tpu_torch.models import ONFConfig  # noqa: E402
 from nfopp_tpu_torch.parallel import BatchPlanner, batch_sharding, shard_batch  # noqa: E402
-from nfopp_tpu_torch.parallel.mesh import ProblemMesh  # noqa: E402
+from nfopp_tpu_torch.parallel.mesh import ProblemMesh, RowLayout  # noqa: E402
 from nfopp_tpu_torch.solver import ConstrainedSolver, SolverConfig  # noqa: E402
 from nfopp_tpu_torch.utils.tree import tree_leaves, tree_map, tree_named_leaves  # noqa: E402
 from nfopp_tpu_torch.worlds import (  # noqa: E402
@@ -116,7 +116,7 @@ class DescendingSolver:
     steps); it collides above 1.0, so a problem turns feasible, shortens
     while it descends, and stops improving at 0.5. Counts its runs."""
 
-    mesh = None
+    layout = RowLayout.alone("cpu")
 
     def __init__(self):
         self.runs = 0
@@ -155,9 +155,10 @@ def tracked(mesh, rows: slice):
     from nfopp_tpu_torch.solver.tracking import run_tracking_segment, tracking_init
 
     solver = DescendingSolver()
+    if mesh is not None:
+        solver.layout = RowLayout(mesh)
     carry = tracking_init(solver, descending(rows))
-    carry = run_tracking_segment(solver, carry, None, 30, None, min_iterations=0, check_freq=10,
-                                 mesh=mesh)
+    carry = run_tracking_segment(solver, carry, None, 30, None, min_iterations=0, check_freq=10)
     return carry, solver.runs
 
 
@@ -762,7 +763,7 @@ def test_a_rank_without_rows_joins_each_field_step_s_collective(monkeypatch, fie
 def test_crossing_groups_of_a_layout(spans, group_size, crossing):
     """The groups whose rows several ranks hold (a rank may hold none), and
     every rank's rows cut at the group boundaries."""
-    from nfopp_tpu_torch.solver.constrained import _crossing_groups, _segments
+    from nfopp_tpu_torch.parallel.mesh import _crossing_groups, _segments
 
     assert _crossing_groups(spans, group_size) == crossing
     for lo, hi in spans:
@@ -770,6 +771,57 @@ def test_crossing_groups_of_a_layout(spans, group_size, crossing):
         assert [r for _, a, b in segments for r in range(a, b)] == list(range(hi - lo))
         for group, a, b in segments:
             assert all((lo + r) // group_size == group for r in range(a, b))
+
+
+
+# (mesh size, spans, rank, rows on the rank, group size): first row, the
+# rank's rows of the global batch (global batch, slice), block rows at one
+# row per group, segments and crossing groups
+LAYOUT_CASES = {
+    "even, a group straddling two ranks": (
+        (2, None, 1, 6, 4), (6, (12, slice(6, 12)), (3, slice(1, 3)), ((1, 0, 2), (2, 2, 6)), (1,))),
+    "uneven": (
+        (3, ((0, 3), (3, 3), (3, 8)), 2, 5, 4),
+        (3, (8, slice(3, 8)), (2, slice(0, 2)), ((0, 0, 1), (1, 1, 5)), (0,))),
+    "a rank holding no rows": (
+        (3, ((0, 3), (3, 3), (3, 8)), 1, 0, 4),
+        (3, (8, slice(3, 3)), (2, slice(0, 0)), ((0, 0, 0),), (0,))),
+    "groups inside one rank": (
+        (2, None, 0, 6, 3), (0, (12, slice(0, 6)), (4, slice(0, 2)), ((0, 0, 3), (1, 3, 6)), ())),
+    "a group covering several ranks": (
+        (3, None, 1, 4, 12), (4, (12, slice(4, 8)), (1, slice(0, 1)), ((0, 0, 4),), (0,))),
+}
+
+
+@pytest.mark.parametrize("case", list(LAYOUT_CASES))
+def test_a_row_layout_answers_which_rows_a_rank_holds(case):
+    """`RowLayout`'s first row, rows, block rows, segments and crossing
+    groups, and its cut of a drawn block: the drawn whole block sliced to
+    the rank's rows."""
+    (size, spans, rank, batch, group_size), want = LAYOUT_CASES[case]
+    layout = RowLayout(ProblemMesh(None, rank, size, torch.device("cpu")))
+    if spans is not None:
+        layout = layout.with_rows(spans)
+    got = (layout.first(batch), layout.block_rows(batch), layout.block_rows(batch, group_size),
+           layout.segments(batch, group_size), layout.crossing_groups(batch, group_size))
+    assert got == want
+
+    def draw(rows):
+        return torch.rand((rows, 3), generator=torch.Generator().manual_seed(0))
+
+    for per, (blocks, rows) in ((1, want[1]), (group_size, want[2])):
+        assert torch.equal(layout.cut(draw, batch, per), draw(blocks)[rows])
+
+
+def test_a_solver_without_a_mesh_holds_this_process_alone():
+    """A solver built with no mesh holds the single-process layout, as does
+    BatchPlanner's solver on a mesh of one process; `with_mesh` sets the
+    mesh's."""
+    alone = RowLayout(ProblemMesh(None, 0, 1, torch.device("cpu")))
+    solver = scene(4)[0]
+    assert solver.layout == alone and BatchPlanner(solver).solver.layout == alone
+    mesh = ProblemMesh(None, 1, 2, torch.device("cpu"))
+    assert solver.with_mesh(mesh).layout == RowLayout(mesh)
 
 
 if __name__ == "__main__":

@@ -33,6 +33,7 @@ from nfopp_tpu.solver import run_planner_config as jax_run_planner_config
 from nfopp_tpu.worlds import RectangleOracle as JaxRectangleOracle
 from nfopp_tpu.worlds import rectangle_collision as jax_rectangle_collision
 from nfopp_tpu_torch.models import ONFConfig
+from nfopp_tpu_torch.parallel.mesh import RowLayout
 from nfopp_tpu_torch.service import (
     advance_along_path,
     dynamic_replan_session,
@@ -154,9 +155,13 @@ class StandIn:
     """The same stand-in for the port (batched); records every burst."""
 
     config = JaxStandIn.config
+    layout = RowLayout.alone("cpu")
 
     def __init__(self):
         self.bursts = []  # (kind, batch, noise, first robot's start x)
+
+    def with_rows(self, spans):
+        return self
 
     def full_trajectory(self, s):
         return torch.cat([s.start[:, None], s.trajectory, s.goal[:, None]], dim=1)

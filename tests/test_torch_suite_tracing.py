@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from nfopp_tpu_torch.bench.runner import run_grid_suite
-from nfopp_tpu_torch.parallel.mesh import count_over_problems
+from nfopp_tpu_torch.parallel.mesh import RowLayout, count_over_problems
 from nfopp_tpu_torch.solver import run_with_tracking
 from nfopp_tpu_torch.solver import tracking
 from nfopp_tpu_torch.utils import aot, profiling
@@ -81,6 +81,7 @@ class MovingSolver:
     """A stand-in solver: `run` moves each path by a fixed velocity a step."""
 
     oracle_fn = staticmethod(grid_collision)
+    layout = RowLayout.alone("cpu")
 
     def run(self, state, oracle_params, num_steps, noise):
         return state._replace(trajectory=state.trajectory + num_steps * state.velocity,

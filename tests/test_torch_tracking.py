@@ -19,6 +19,7 @@ import torch
 from nfopp_tpu.solver import tracking as jt
 from nfopp_tpu.worlds import RectangleOracle as JaxRectangleOracle
 from nfopp_tpu.worlds import rectangle_collision as jax_rectangle_collision
+from nfopp_tpu_torch.parallel.mesh import RowLayout
 from nfopp_tpu_torch.solver import (
     ConstrainedSolver,
     evaluate_path,
@@ -70,6 +71,7 @@ class MovingSolver:
     """The same stand-in for the port (batched)."""
 
     oracle_fn = staticmethod(rectangle_collision)
+    layout = RowLayout.alone("cpu")
 
     def __init__(self):
         self.noise_calls = 0
