@@ -21,8 +21,8 @@ from ..models.onf import ONFConfig, onf_apply
 from ..ops.losses import softplus_beta
 from . import build
 from .common import (
-    FORWARD_LIMITS, LAUNCHES, check_fits, check_points, check_tensor, is_bf16, net_args, stream,
-    use_plain,
+    FORWARD_LIMITS, LAUNCHES, check_fits, check_points, check_tensor, is_bf16, net_args,
+    skip_rows, stream, use_plain,
 )
 
 __all__ = ["collision_terms", "collision_terms_plain", "collision_fwd", "collision_bwd"]
@@ -30,22 +30,25 @@ __all__ = ["collision_terms", "collision_terms_plain", "collision_fwd", "collisi
 
 def collision_terms_plain(
     params: dict, positions: torch.Tensor, multipliers: torch.Tensor, config: ONFConfig,
-    beta: float,
+    beta: float, live: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version, differentiable by autograd:
-    (sum_m softplus_beta(z), sum_m mu * tanh(z)) per problem, each [B]. Under
-    bf16 its autograd is the bf16 kernels' yardstick."""
+    (sum_m softplus_beta(z), sum_m mu * tanh(z)) per problem, each [B]; zeros,
+    and so zero gradients, for a problem that is not live. Under bf16 its
+    autograd is the bf16 kernels' yardstick."""
     logits = onf_apply(params, positions, config)[..., 0]
     return (
-        torch.sum(softplus_beta(logits, beta), dim=1),
-        torch.sum(multipliers * torch.tanh(logits), dim=1),
+        skip_rows(torch.sum(softplus_beta(logits, beta), dim=1), live),
+        skip_rows(torch.sum(multipliers * torch.tanh(logits), dim=1), live),
     )
 
 
-def collision_fwd(params, positions, multipliers, config: ONFConfig, beta: float) -> torch.Tensor:
-    """Forward kernel on checked CUDA tensors: [B, 2] = (sum softplus, sum mu * tanh)."""
+def collision_fwd(params, positions, multipliers, config: ONFConfig, beta: float,
+                  live: torch.Tensor | None = None) -> torch.Tensor:
+    """Forward kernel on checked CUDA tensors: [B, 2] = (sum softplus, sum mu *
+    tanh), (0, 0) for a problem that is not live."""
     batch, m, dim = positions.shape
-    net = net_args(params, config, batch, positions.device)
+    net = net_args(params, config, batch, positions.device, live)
     bf16 = is_bf16(config)
     name = "collision_fwd_bf16" if bf16 else "collision_fwd"
     out = torch.empty((batch, 2), dtype=torch.float32, device=positions.device)
@@ -58,11 +61,13 @@ def collision_fwd(params, positions, multipliers, config: ONFConfig, beta: float
     return out
 
 
-def collision_bwd(params, positions, multipliers, g, config: ONFConfig, beta: float):
+def collision_bwd(params, positions, multipliers, g, config: ONFConfig, beta: float,
+                  live: torch.Tensor | None = None):
     """Backward kernel on checked CUDA tensors: cotangents g [B, 2] ->
-    (d positions [B, M, dim], d multipliers [B, M])."""
+    (d positions [B, M, dim], d multipliers [B, M]), zeros for a problem that
+    is not live."""
     batch, m, dim = positions.shape
-    net = net_args(params, config, batch, positions.device)
+    net = net_args(params, config, batch, positions.device, live)
     check_tensor("cotangents", g, (batch, 2), positions.device)
     bf16 = is_bf16(config)
     name = "collision_bwd_bf16" if bf16 else "collision_bwd"
@@ -84,10 +89,10 @@ class _CollisionTerms(torch.autograd.Function):
     launch, which recomputes the forward."""
 
     @staticmethod
-    def forward(ctx, positions, multipliers, params, config, beta):
-        out = collision_fwd(params, positions, multipliers, config, beta)
+    def forward(ctx, positions, multipliers, params, config, beta, live):
+        out = collision_fwd(params, positions, multipliers, config, beta, live)
         ctx.save_for_backward(positions, multipliers)
-        ctx.params, ctx.config, ctx.beta = params, config, beta
+        ctx.params, ctx.config, ctx.beta, ctx.live = params, config, beta, live
         return out[:, 0], out[:, 1]
 
     @staticmethod
@@ -98,19 +103,20 @@ class _CollisionTerms(torch.autograd.Function):
             zeros if g_soft is None else g_soft, zeros if g_tanh is None else g_tanh,
         ], dim=1).to(torch.float32).contiguous()
         d_positions, d_multipliers = collision_bwd(
-            ctx.params, positions, multipliers, g, ctx.config, ctx.beta)
-        return d_positions, d_multipliers, None, None, None
+            ctx.params, positions, multipliers, g, ctx.config, ctx.beta, ctx.live)
+        return d_positions, d_multipliers, None, None, None, None
 
 
 def collision_terms(
     params: dict, positions: torch.Tensor, multipliers: torch.Tensor, config: ONFConfig,
-    beta: float,
+    beta: float, live: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(sum softplus_beta(z), sum mu * tanh(z)) per problem for poses
     [B, M, dim] and multipliers [B, M]; differentiable w.r.t. both (never
-    w.r.t. the field parameters)."""
+    w.r.t. the field parameters). With live rows `live` (bool [B]) a problem
+    that is not live gets zeros and zero gradients, and its CTAs are skipped."""
     if use_plain(positions, config, "collision_terms"):
-        return collision_terms_plain(params, positions, multipliers, config, beta)
+        return collision_terms_plain(params, positions, multipliers, config, beta, live)
     batch, m, _ = check_points(positions, config, "collision_terms")
     check_tensor("multipliers", multipliers, (batch, m), positions.device)
-    return _CollisionTerms.apply(positions, multipliers, params, config, beta)
+    return _CollisionTerms.apply(positions, multipliers, params, config, beta, live)

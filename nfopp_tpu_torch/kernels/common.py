@@ -4,6 +4,12 @@ the checks on their inputs and the C view of one batch of fields.
 Dispatch rule: a wrapper given CPU tensors computes its plain PyTorch
 version; given CUDA tensors it launches its kernel or raises. There is no
 fallback from one to the other.
+
+Live rows: the production solver's three field passes (`onf_forward`,
+`field_grad`, `collision_terms`) take `live`, a bool [B] marking the
+problems to compute, or None for all of them. A kernel skips the CTA of a
+problem that is not live and writes zeros to its outputs; the plain version
+computes every row and gives the same zeros (`skip_rows`).
 """
 from __future__ import annotations
 
@@ -16,7 +22,7 @@ from ..models.onf import ONFConfig
 __all__ = [
     "LAUNCHES", "reset_launches", "NetArgs", "net_args", "use_plain", "is_bf16",
     "check_problems_per_program", "check_points", "check_tensor", "stream", "TOO_LARGE",
-    "check_fits", "FORWARD_LIMITS",
+    "check_fits", "FORWARD_LIMITS", "skip_rows",
 ]
 
 # launches of each kernel, counted by its wrapper where it launches it; the
@@ -104,6 +110,24 @@ def check_tensor(name: str, t: torch.Tensor, shape: tuple, device: torch.device)
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
+def check_live(live: torch.Tensor, batch: int, device: torch.device) -> None:
+    """Live rows are a contiguous bool [batch] beside the kernel's inputs."""
+    if (live.dtype != torch.bool or tuple(live.shape) != (batch,) or live.device != device
+            or not live.is_contiguous()):
+        raise ValueError(f"live rows: expected a contiguous bool [{batch}] on {device}, got "
+                         f"{live.dtype} {tuple(live.shape)} on {live.device}")
+
+
+def skip_rows(out: torch.Tensor, live: torch.Tensor | None) -> torch.Tensor:
+    """A plain version's output [B, ...] as its kernel writes it under live
+    rows `live` (bool [B], None = every row): zeros where a problem is not
+    live (a skipped CTA, csrc/onf_common.cuh's `skipped`), the rest as is."""
+    if live is None:
+        return out
+    check_live(live, out.shape[0], out.device)
+    return torch.where(live.reshape((-1,) + (1,) * (out.ndim - 1)), out, out.new_zeros(()))
+
+
 class NetArgs(ctypes.Structure):
     """Mirror of `struct NetArgs` in csrc/onf_common.cuh."""
 
@@ -112,15 +136,18 @@ class NetArgs(ctypes.Structure):
         ("w1", ctypes.c_void_p), ("b1", ctypes.c_void_p),
         ("w2", ctypes.c_void_p), ("b2", ctypes.c_void_p),
         ("w3", ctypes.c_void_p), ("b3", ctypes.c_void_p),
-        ("ab", ctypes.c_void_p),
+        ("ab", ctypes.c_void_p), ("live", ctypes.c_void_p),
         ("F", ctypes.c_int), ("A", ctypes.c_int), ("HID", ctypes.c_int),
         ("use_cos", ctypes.c_int), ("bias", ctypes.c_int),
         ("mean", ctypes.c_float), ("sigma", ctypes.c_float),
     ]
 
 
-def net_args(params: dict, config: ONFConfig, batch: int, device: torch.device) -> NetArgs:
-    """Check one batch of field parameters and describe it to the kernels."""
+def net_args(params: dict, config: ONFConfig, batch: int, device: torch.device,
+             live: torch.Tensor | None = None) -> NetArgs:
+    """Check one batch of field parameters and describe it to the kernels;
+    `live` (bool [batch], or None for every problem) marks the problems the
+    kernels compute (`skip_rows`)."""
     if device.type != "cuda":
         raise ValueError(f"the CUDA kernels take CUDA tensors, got {device}")
     f, a, hid = config.fourier_features, config.angle_features, config.hidden
@@ -146,9 +173,12 @@ def net_args(params: dict, config: ONFConfig, batch: int, device: torch.device) 
         t = params["angle_biases"]
         check_tensor("params[angle_biases]", t, (batch, a), device)
         ab = t.data_ptr()
+    if live is not None:
+        check_live(live, batch, device)
     return NetArgs(
         ptr["encodingw"], ptr["encodingb"], ptr["mlp1w"], ptr["mlp1b"],
         ptr["mlp2w"], ptr["mlp2b"], ptr["outw"], ptr["outb"], ab,
+        None if live is None else live.data_ptr(),
         f, a, hid, int(config.use_cos), int(config.bias),
         float(config.mean), float(config.sigma),
     )

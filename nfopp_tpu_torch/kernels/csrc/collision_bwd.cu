@@ -53,6 +53,13 @@
 // columns exceed the f32 kernel's thread mapping, is refused (TOO_LARGE): at
 // 220 features the f32 kernel takes hidden <= 108, the bf16 kernel every field
 // of hidden <= 128 and <= 256 features.
+//
+// Live rows (NetArgs::live, set while the tracked loop runs a chunk with
+// stopped problems): a skipped problem's CTA writes zero pose and multiplier
+// gradients and returns, so the f32 kernel (one CTA per SM) runs its live
+// problems in one wave when at most 132 are live. The loop throws a stopped
+// problem's step away; zeros, not the untouched torch.empty outputs, keep
+// that row's Adam step and dual ascent on finite values that repeat.
 #include "field_grad.cuh"
 
 using namespace nf;
@@ -234,6 +241,12 @@ collision_bwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ m
   float* th = reinterpret_cast<float*>(sm + L.th);
   float* gs = reinterpret_cast<float*>(sm + L.g);
 
+  if (skipped(n)) {
+    zero_row<CB_THREADS>(dx + (size_t)b * M * dim, (size_t)M * dim);
+    zero_row<CB_THREADS>(dmult + (size_t)b * M, M);
+    return;
+  }
+
   // zero everything: padding rows and columns stay zero
   for (int i = tid; i < L.total / 16; i += CB_THREADS) smem_f4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   __syncthreads();
@@ -371,6 +384,12 @@ collision_bwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ 
         *slope = s + L.slope, *h1 = s + L.h1, *h2 = s + L.h2;
   float *w3 = s + L.w3, *ew = s + L.ew, *eb = s + L.eb, *b1 = s + L.b1, *b2 = s + L.b2,
         *ab = s + L.ab, *xn = s + L.xn, *yn = s + L.yn, *th = s + L.th, *gs = s + L.g;
+
+  if (skipped(n)) {
+    zero_row<CF_THREADS>(dx + (size_t)b * M * dim, (size_t)M * dim);
+    zero_row<CF_THREADS>(dmult + (size_t)b * M, M);
+    return;
+  }
 
   // zero everything: padding rows and columns stay zero
   for (int i = tid; i < L.total / 4; i += CF_THREADS) smem_f4[i] = make_float4(0.f, 0.f, 0.f, 0.f);

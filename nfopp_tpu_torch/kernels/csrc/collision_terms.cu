@@ -22,6 +22,13 @@
 // Two instantiations: F32, and BF16_APPLY, the trajectory step's collision
 // terms under compute_dtype="bfloat16", computed by the solver through
 // models/onf.py::onf_apply, whose casts round xy and the encoding weights too.
+//
+// Live rows (NetArgs::live, set while the tracked loop runs a chunk with
+// stopped problems): a skipped problem's CTA writes (0, 0) and returns, so the
+// f32 kernel (one CTA per SM) runs its live problems in one wave when at most
+// 132 are live. The loop throws a stopped problem's step away; zeros, not
+// the untouched torch.empty output, keep that row's trajectory loss finite
+// and repeatable.
 #include "forward.cuh"
 
 using namespace nf;
@@ -32,6 +39,10 @@ template <int P>
 __device__ inline void collision_sums(const float* x, const float* mult, int M, int dim,
                                       const NetArgs& n, float beta, float* out, float4* smem) {
   constexpr int ROWS = Fwd<P>::ROWS, WARPS = Fwd<P>::WARPS;
+  if (skipped(n)) {
+    if (threadIdx.x == 0) out[2 * blockIdx.x] = out[2 * blockIdx.x + 1] = 0.f;
+    return;
+  }
   float soft = 0.f, mt = 0.f;  // this lane's row slot, summed over the tiles
   float* part = forward_problem<P>(x, mult, M, dim, n, smem, [&](int row, float z, float mu) {
     if (row < M) {

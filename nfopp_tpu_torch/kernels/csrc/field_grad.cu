@@ -14,6 +14,14 @@
 // production solver's field update under compute_dtype="bfloat16", autograd
 // of models/onf.py::onf_apply's casts. The same work takes ~11 us at 989
 // TFLOP/s, so the ~68 MB of f32 weights in and gradients out bound it.
+//
+// Live rows (NetArgs::live, set while the tracked loop runs a chunk with
+// stopped problems): a skipped problem's CTA writes a zero loss and zero
+// gradients and returns. The loop throws a stopped problem's step away, so
+// nothing is lost, and the CTA frees its SM within microseconds: with at
+// most 132 live problems every live CTA (one per SM, ~219 KB of shared
+// memory) starts in the first wave. Zeros, not the untouched torch.empty
+// outputs, so the step's later ops see finite values that repeat.
 #include "field_grad.cuh"
 
 using namespace nf;

@@ -83,6 +83,23 @@ struct Grads {
   float *ew, *eb, *w1, *b1, *w2, *b2, *w3, *b3, *ab;
 };
 
+// A skipped problem's loss and gradients (onf_common.cuh's `skipped`): zeros,
+// by the CTA's NT threads (not inlined, as zero_row).
+template <int NT>
+__device__ __noinline__ void zero_grads(const NetArgs& n, float* loss, const Grads& gr) {
+  const size_t b = blockIdx.x, F = n.F, A = n.A, HID = n.HID, FEAT = F + A;
+  zero_row<NT>(gr.ew + b * 2 * F, 2 * F);
+  zero_row<NT>(gr.eb + b * F, F);
+  zero_row<NT>(gr.w1 + b * FEAT * HID, FEAT * HID);
+  zero_row<NT>(gr.b1 + b * HID, HID);
+  zero_row<NT>(gr.w2 + b * HID * HID, HID * HID);
+  zero_row<NT>(gr.b2 + b * HID, HID);
+  zero_row<NT>(gr.w3 + b * (HID + FEAT), HID + FEAT);
+  zero_row<NT>(gr.b3 + b, 1);
+  if (A > 0) zero_row<NT>(gr.ab + b * A, A);
+  zero_row<NT>(loss + b, 1);
+}
+
 // A cast weight's gradient, rounded once after its f32 sum over all points
 // under BF16_APPLY; f32 otherwise.
 template <int P>
@@ -395,6 +412,10 @@ field_grad_f32_kernel(const float* __restrict__ x, const float* __restrict__ y, 
         *bces = s + L.bce;
   float *gw3 = s + L.gw3, *gb1 = s + L.gb1, *gb2 = s + L.gb2, *gew = s + L.gew,
         *geb = s + L.geb, *gab = s + L.gab;
+  if (skipped(n)) {
+    zero_grads<THREADS>(n, loss, gr);
+    return;
+  }
 
   // zero everything: padding rows and columns stay zero, sums start at zero
   for (int i = tid; i < L.total / 4; i += THREADS) smem_f4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -926,6 +947,10 @@ field_grad_tc_kernel(const float* __restrict__ x, const float* __restrict__ y, i
   float* gew = reinterpret_cast<float*>(sm + L.gew);
   float* geb = reinterpret_cast<float*>(sm + L.geb);
   float* gab = reinterpret_cast<float*>(sm + L.gab);
+  if (skipped(n)) {
+    zero_grads<TC_THREADS>(n, loss, gr);
+    return;
+  }
 
   // zero everything: padding rows and columns stay zero, sums start at zero
   for (int i = tid; i < L.total / 16; i += TC_THREADS) smem_f4[i] = make_float4(0.f, 0.f, 0.f, 0.f);

@@ -311,11 +311,15 @@ __device__ inline float* forward_problem(const float* x, const float* mult, int 
 }
 
 // Logits of a batch of fields at their query points (kernels 1 and 5): one
-// CTA per problem, only the logits written.
+// CTA per problem, only the logits written (zeros for a skipped problem).
 template <int P>
 __device__ inline void onf_logits(const float* x, int M, int dim, const NetArgs& n, float* out,
                                   float4* smem) {
   out += (size_t)blockIdx.x * M;
+  if (skipped(n)) {
+    zero_row<Fwd<P>::THREADS>(out, M);
+    return;
+  }
   forward_problem<P>(x, nullptr, M, dim, n, smem, [&](int row, float z, float) {
     if (row < M) out[row] = z;
   });

@@ -18,6 +18,13 @@
 // through models/onf.py::onf_apply's casts: onf_logits_tc_kernel<BF16_APPLY>
 // (xy, the encoding weights and every product operand rounded to bf16, f32
 // accumulation), the products on the tensor cores.
+//
+// Live rows (NetArgs::live, set while the tracked loop runs a chunk with
+// stopped problems): a skipped problem's CTA writes zero logits and returns,
+// so the f32 kernel (one CTA per SM) runs its live problems in one wave when
+// at most 132 are live. The loop throws a stopped problem's step away; zeros,
+// not the untouched torch.empty output, keep the replay buffer's resampling
+// of that row on finite values that repeat.
 #include "forward.cuh"
 
 using namespace nf;

@@ -21,7 +21,8 @@ from ..ops.losses import bce_with_logits
 from ..utils.tree import tree_leaves, tree_map
 from . import build
 from .common import (
-    LAUNCHES, TOO_LARGE, check_points, check_tensor, is_bf16, net_args, stream, use_plain,
+    LAUNCHES, TOO_LARGE, check_points, check_tensor, is_bf16, net_args, skip_rows,
+    stream, use_plain,
 )
 
 __all__ = ["field_grad", "field_grad_plain", "launch_field_grad"]
@@ -35,10 +36,12 @@ class _Grads(ctypes.Structure):
 
 
 def field_grad_plain(
-    params: dict, points: torch.Tensor, truth: torch.Tensor, config: ONFConfig
+    params: dict, points: torch.Tensor, truth: torch.Tensor, config: ONFConfig,
+    live: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, dict]:
     """Plain PyTorch version: autograd of `onf_apply` + BCE. Returns per-problem
-    losses [B] and gradients shaped like `params`."""
+    losses [B] and gradients shaped like `params` (zeros for a problem that
+    is not live)."""
     with torch.enable_grad():
         leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
         logits = onf_apply(leaves, points, config)
@@ -46,21 +49,23 @@ def field_grad_plain(
         flat = tree_leaves(leaves)
         grads = torch.autograd.grad(loss.sum(), flat, allow_unused=True)
     # an unused leaf (the encoding bias under bias=False) gets a zero gradient
-    grads = iter([torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)])
-    return loss.detach(), tree_map(lambda _: next(grads), leaves)
+    grads = iter([skip_rows(torch.zeros_like(p) if g is None else g, live)
+                  for p, g in zip(flat, grads)])
+    return skip_rows(loss.detach(), live), tree_map(lambda _: next(grads), leaves)
 
 
 def launch_field_grad(
     name: str, entry: str, params: dict, points: torch.Tensor, truth: torch.Tensor,
-    config: ONFConfig, *flags: int,
+    config: ONFConfig, *flags: int, live: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, dict]:
     """Check the inputs of a field-gradient kernel (this one or
     `field_grad_multi`), allocate its outputs, launch C entry point `entry`
-    (with `flags` after the shapes) and count the launch under `name`."""
+    (with `flags` after the shapes, and live rows `live`) and count the
+    launch under `name`."""
     batch, m, dim = check_points(points, config, name)
     y = truth.to(torch.float32).contiguous()
     check_tensor("truth", y, (batch, m), points.device)
-    net = net_args(params, config, batch, points.device)
+    net = net_args(params, config, batch, points.device, live)
     loss = torch.empty((batch,), dtype=torch.float32, device=points.device)
     grads = tree_map(torch.empty_like, params)
     c = _Grads(
@@ -86,12 +91,15 @@ def launch_field_grad(
 
 
 def field_grad(
-    params: dict, points: torch.Tensor, truth: torch.Tensor, config: ONFConfig
+    params: dict, points: torch.Tensor, truth: torch.Tensor, config: ONFConfig,
+    live: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, dict]:
     """(loss [B], gradients like `params`) of each field's mean BCE-with-logits
-    on points [B, M, dim] against labels truth [B, M] (bool or float)."""
+    on points [B, M, dim] against labels truth [B, M] (bool or float); with
+    live rows `live` (bool [B]) a problem that is not live gets zeros and its
+    CTA is skipped."""
     if use_plain(points, config, "field_grad"):
-        return field_grad_plain(params, points, truth, config)
+        return field_grad_plain(params, points, truth, config, live)
     bf16 = is_bf16(config)
     return launch_field_grad("field_grad_bf16" if bf16 else "field_grad", "nf_field_grad",
-                             params, points, truth, config, int(bf16))
+                             params, points, truth, config, int(bf16), live=live)

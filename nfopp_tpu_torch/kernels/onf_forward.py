@@ -17,23 +17,29 @@ import torch
 from ..models.onf import ONFConfig, onf_apply
 from . import build
 from .common import (
-    FORWARD_LIMITS, LAUNCHES, check_fits, check_points, is_bf16, net_args, stream, use_plain,
+    FORWARD_LIMITS, LAUNCHES, check_fits, check_points, is_bf16, net_args, skip_rows,
+    stream, use_plain,
 )
 
 __all__ = ["onf_forward", "onf_forward_plain"]
 
 
-def onf_forward_plain(params: dict, x: torch.Tensor, config: ONFConfig) -> torch.Tensor:
-    """Plain PyTorch version: `onf_apply`, [B, M, dim] -> [B, M, 1]."""
-    return onf_apply(params, x, config)
+def onf_forward_plain(params: dict, x: torch.Tensor, config: ONFConfig,
+                      live: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch version: `onf_apply`, [B, M, dim] -> [B, M, 1] (zeros
+    for a problem that is not live)."""
+    return skip_rows(onf_apply(params, x, config), live)
 
 
-def onf_forward(params: dict, x: torch.Tensor, config: ONFConfig) -> torch.Tensor:
-    """[B, M, dim] query poses -> [B, M, 1] logits of each problem's field."""
+def onf_forward(params: dict, x: torch.Tensor, config: ONFConfig,
+                live: torch.Tensor | None = None) -> torch.Tensor:
+    """[B, M, dim] query poses -> [B, M, 1] logits of each problem's field;
+    with live rows `live` (bool [B]) a problem that is not live gets zeros
+    and its CTA is skipped."""
     if use_plain(x, config, "onf_forward"):
-        return onf_forward_plain(params, x, config)
+        return onf_forward_plain(params, x, config, live)
     batch, m, dim = check_points(x, config, "onf_forward")
-    net = net_args(params, config, batch, x.device)
+    net = net_args(params, config, batch, x.device, live)
     bf16 = is_bf16(config)
     name = "onf_forward_bf16" if bf16 else "onf_forward"
     out = torch.empty((batch, m, 1), dtype=torch.float32, device=x.device)

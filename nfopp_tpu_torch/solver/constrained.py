@@ -23,6 +23,11 @@ start identical (`init_state(group_size=...)`) and step on the group's mean
 field gradient. The run loop and the field update are shared with
 `HolonomicSolver` through `_FieldSolver`.
 
+Live rows (`live_rows`): while the tracked loop runs a chunk in which some
+problems have stopped, the step's field kernels compute only the live
+problems' rows and give the others zeros; the rows the loop keeps are bit
+for bit those of a run without live rows.
+
 A solver's `layout` (`parallel.mesh.RowLayout`; by default this process
 alone) says which rows of a global batch its batches are. `with_mesh(mesh)`
 makes a copy whose batches are one rank's rows of a batch sharded over a
@@ -34,6 +39,7 @@ per field step. `with_rows(spans)` gives the ranks uneven rows.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 from typing import Any, Callable, NamedTuple
 
@@ -144,6 +150,36 @@ class ConstrainedState(NamedTuple):
 class StepAux(NamedTuple):
     field_loss: torch.Tensor  # [B] (or [B, steps] from run)
     trajectory_loss: torch.Tensor
+
+
+# the live rows that the captured programs of a batch of B rows read on a
+# device (bool [B]): every row live, but while `_run_program` replays them
+# for a caller that set live rows; one buffer per (device, B), so a program
+# replayed for another solver of its key reads the same one
+_LIVE_BUFFERS: dict[tuple, torch.Tensor] = {}
+
+
+def _live_buffer(device: torch.device, batch: int) -> torch.Tensor:
+    key = (device, batch)
+    if key not in _LIVE_BUFFERS:
+        _LIVE_BUFFERS[key] = torch.ones((batch,), dtype=torch.bool, device=device)
+    return _LIVE_BUFFERS[key]
+
+
+@contextlib.contextmanager
+def _live_rows_copied(buffer: torch.Tensor | None, live: torch.Tensor | None):
+    """Within: the live-rows buffer `buffer` of captured programs (see
+    `_live_buffer`) holds `live`; after, every row is live again, also
+    where a replay raised, since a buffer left masked would zero those rows
+    in every later replay of its batch. Nothing with either None."""
+    if buffer is None or live is None:
+        yield
+        return
+    buffer.copy_(live)
+    try:
+        yield
+    finally:
+        buffer.fill_(True)
 
 
 def _as_noise(noise):
@@ -302,6 +338,27 @@ class _FieldSolver:
             if with_field:
                 sum_over_ranks(wire, self.layout.mesh)
 
+    # ------------------------------------------------------------- live rows
+
+    # the rows whose problems the step's field kernels compute (bool [B];
+    # None: every row): set by `live_rows`
+    _live: torch.Tensor | None = None
+
+    @contextlib.contextmanager
+    def live_rows(self, live: torch.Tensor | None):
+        """Within: `run`'s field kernels (`kernels.onf_forward`, `field_grad`,
+        `collision_terms`) compute only the problems where `live` (bool [B],
+        this rank's rows) holds; the others' CTAs write zeros and return, and
+        the step's PyTorch ops and noise still cover every row. For a caller
+        that throws the other rows' steps away, as the tracked loop does with
+        stopped problems: the rows it keeps are bit for bit a full run's.
+        Not for `run_grouped`, whose group mean needs every row."""
+        outer, self._live = self._live, live
+        try:
+            yield
+        finally:
+            self._live = outer
+
     # ------------------------------------------------------------------ init
 
     def _pretrain_field(self, state, oracle_params, generator, group_size: int = 1):
@@ -413,10 +470,11 @@ class _FieldSolver:
         cfg = self.config
         sample = sample_field_points(
             cfg, noise, state.prev_trajectory, state.buffer_points, state.buffer_ages,
-            state.field_params, state.bounds,
+            state.field_params, state.bounds, live=self._live,
         )
         truth = self.oracle_fn(oracle_params, sample.train_points)
-        loss, grads = field_loss_and_grad(cfg, state.field_params, sample.train_points, truth)
+        loss, grads = field_loss_and_grad(cfg, state.field_params, sample.train_points, truth,
+                                          self._live)
         if group_size > 1:
             grads = self._group_mean_grads(grads, state.start.shape[0], group_size)
         return sample, loss, grads
@@ -463,7 +521,8 @@ class _FieldSolver:
         captured one-step program. Reading step_count costs one device sync
         per call, outside any program; on a mesh the ranks agree on the
         schedule (one small all_reduce). The call is a `run` span
-        (`utils.profiling`), the read a `sync` span inside it.
+        (`utils.profiling`), the read a `sync` span inside it. Inside
+        `live_rows` the field kernels compute the live rows only.
         """
         freq = self.config.reparametrize_trajectory_freq
         with profiling.span("run", steps=num_steps, batch=state.start.shape[0]) as span:
@@ -597,26 +656,36 @@ class _FieldSolver:
         the next replay. The key holds the group size, the span and
         `key_parts` besides `_program`'s. Each replay's aux is copied into
         [B, num_steps] buffers. Each program call is a `replay` span, the
-        output state's clone a `run.outputs` span."""
+        output state's clone a `run.outputs` span.
+
+        On the card the program's field kernels read their live rows from
+        the buffer of its batch (`_live_buffer`, every row live): inside
+        `live_rows` the call copies the live rows in before its replays and
+        sets every row live again after them (`_live_rows_copied`)."""
         batch = state.start.shape[0]
         on_card = self.device.type == "cuda"
+        rows = None
         if on_card:
             noise = _program_generator(noise)
+            rows = _live_buffer(state.start.device, batch)
         else:
             state = tree_map(torch.clone, state)  # uncaptured, the body writes into its input
 
         def body(s, o, g):
-            new, aux = steps(s, o, span, g)
+            with self.live_rows(rows) if on_card else contextlib.nullcontext():
+                new, aux = steps(s, o, span, g)
             return tree_copy_(s, new), aux
 
-        program = self._program(name, body, (state, oracle_params, noise), group_size, span,
-                                *key_parts)
-        aux = StepAux(*(torch.empty((batch, num_steps), device=self.device) for _ in range(2)))
-        for c in range(num_steps // span):
-            with profiling.span("replay"):
-                state, replay_aux = program(state, oracle_params, noise)
-            for buf, a in zip(aux, replay_aux):
-                buf[:, c * span:(c + 1) * span] = a
+        with _live_rows_copied(rows, self._live):
+            program = self._program(name, body, (state, oracle_params, noise), group_size, span,
+                                    *key_parts)
+            aux = StepAux(*(torch.empty((batch, num_steps), device=self.device)
+                            for _ in range(2)))
+            for c in range(num_steps // span):
+                with profiling.span("replay"):
+                    state, replay_aux = program(state, oracle_params, noise)
+                for buf, a in zip(aux, replay_aux):
+                    buf[:, c * span:(c + 1) * span] = a
         # on the card the state is the program's buffers, which its next replay overwrites
         with profiling.span("run.outputs"):
             return (tree_map(torch.clone, state) if on_card else state), aux
@@ -746,7 +815,8 @@ class ConstrainedSolver(_FieldSolver):
         collision_positions, multipliers = self.collision_inputs(
             trajectory, collision_multipliers, t)
         collision_loss, multiplier_loss = collision_terms(
-            field_params, collision_positions, multipliers, cfg.onf, cfg.collision_beta
+            field_params, collision_positions, multipliers, cfg.onf, cfg.collision_beta,
+            self._live,
         )
         collision_loss = collision_loss / samples
         multiplier_loss = multiplier_loss / samples
@@ -848,6 +918,9 @@ class ConstrainedSolver(_FieldSolver):
         """
         freq = self.config.reparametrize_trajectory_freq
         _check_chunkable("run_grouped", num_steps, freq)
+        if self._live is not None:
+            raise ValueError("run_grouped takes no live rows: a group's mean gradient needs "
+                             "every row")
         self.layout.check_group_size(states.trajectory.shape[0], group_size)
         self._check_static_field_stride("shared-field mode")
         with profiling.span("run", steps=num_steps, batch=states.trajectory.shape[0],

@@ -114,24 +114,27 @@ def sample_field_points(
     field_params: dict,
     bounds: torch.Tensor,
     score_fn: Callable[[dict, torch.Tensor], torch.Tensor] | None = None,
+    live: torch.Tensor | None = None,
 ) -> FieldSample:
     """Training points of one field step and the advanced replay buffer; the
     candidates [B, M, dim] are scored by score_fn(params, candidates) -> [B,
     M] logits, by default the field's forward (the `onf_forward` kernel on
-    CUDA)."""
+    CUDA, on the live rows `live`)."""
     pre = field_sample_pre(config, noise, prev_trajectory, bounds)
     candidates = torch.cat([buffer_points, pre.fine], dim=1)
     candidate_ages = torch.cat([buffer_ages, torch.zeros_like(pre.fine[..., 0])], dim=1)
     if score_fn is None:
-        logits = onf_forward(field_params, candidates, config.onf)[..., 0]
+        logits = onf_forward(field_params, candidates, config.onf, live)[..., 0]
     else:
         logits = score_fn(field_params, candidates)
     return field_sample_post(config, pre, logits, candidates, candidate_ages)
 
 
 def field_loss_and_grad(
-    config: SolverConfig, field_params: dict, points: torch.Tensor, truth: torch.Tensor
+    config: SolverConfig, field_params: dict, points: torch.Tensor, truth: torch.Tensor,
+    live: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, dict]:
     """Per-problem BCE-with-logits loss of the field against oracle labels,
-    and its parameter gradients (the `field_grad` kernel on CUDA)."""
-    return field_grad(field_params, points, truth, config.onf)
+    and its parameter gradients (the `field_grad` kernel on CUDA, on the
+    live rows `live`)."""
+    return field_grad(field_params, points, truth, config.onf, live)

@@ -114,7 +114,8 @@ class HolonomicSolver(_FieldSolver):
         full = torch.cat([start[:, None], trajectory, goal[:, None]], dim=1)
         positions = random_intermediate_positions(t, trajectory)
         multipliers = torch.zeros(positions.shape[:2], device=positions.device)
-        collision, _ = collision_terms(field_params, positions, multipliers, cfg.onf, 1.0)
+        collision, _ = collision_terms(field_params, positions, multipliers, cfg.onf, 1.0,
+                                       self._live)
         return distance_loss(full) + collision * cfg.collision_weight
 
     def _trajectory_step(self, state: HolonomicState, noise) -> tuple[HolonomicState, torch.Tensor]:

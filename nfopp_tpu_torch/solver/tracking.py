@@ -18,15 +18,29 @@ each rank holds rows of the batch, and the ranks agree on whether any
 problem is still active (one small all_reduce per chunk), so all run the
 same chunks, as the 1-rank loop does.
 
+A chunk in which some of this rank's problems have stopped runs inside the
+solver's `live_rows(active)`: the field kernels skip the stopped problems'
+CTAs (each writes zeros and returns), while the PyTorch ops still compute,
+and the noise still covers, every row, and `tree_where` still keeps the
+stopped rows' carry. So every result the loop keeps is bit for bit that of
+a loop without live rows. The gain is the card's: its f32 field kernels
+run one CTA per SM, so once no more live problems than the card has SMs
+remain, the live CTAs all start in the first wave.
+
 `LANE_STEPS` counts, in this process, the lane-steps the tracked loop of
 `run_tracking_segment` computed (`"computed"`: this rank's rows times the
-steps of each chunk) and those it computed for problems still active
-(`"active"`); their difference is the work spent on problems already
-stopped. Both are host integers, read with the loop's one host sync per
+steps of each chunk), those it computed for problems still active
+(`"active"`; the difference is the work the PyTorch ops spend on problems
+already stopped), those whose kernel CTAs it skipped (`"skipped"`: the
+stopped rows of each chunk run inside `live_rows`, times its steps), and the
+steps of the chunks in which skipping brought the live rows into one wave
+(`"one_wave"`: live rows no more than the card's SMs, all rows more; 0 on
+the CPU). All are host integers, read with the loop's one host sync per
 chunk (`count_over_problems`).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, NamedTuple
 
 import torch
@@ -48,9 +62,19 @@ __all__ = [
     "tracking_init",
 ]
 
-# lane-steps of the tracked loop in this process: every row it computed, and
-# the rows of problems still active (see the module)
-LANE_STEPS = {"computed": 0, "active": 0}
+# lane-steps of the tracked loop in this process: every row it computed, the
+# rows of problems still active, the rows whose kernel CTAs it skipped, and
+# the steps of chunks whose live rows fit one wave (see the module)
+LANE_STEPS = {"computed": 0, "active": 0, "skipped": 0, "one_wave": 0}
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    """The card's SMs: the CTAs of one wave of the field kernels (one CTA
+    per SM); 0 off the card."""
+    if device.type != "cuda":
+        return 0
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 class TrackingResult(NamedTuple):
@@ -150,9 +174,16 @@ def run_tracking_segment(
         live, anywhere = count_over_problems(active, solver.layout.mesh)
         if not anywhere:
             return carry
-        LANE_STEPS["computed"] += active.shape[0] * check_freq
+        rows = active.shape[0]
+        LANE_STEPS["computed"] += rows * check_freq
         LANE_STEPS["active"] += live * check_freq
-        stepped, _ = solver.run(carry.state, oracle_params, check_freq, noise)
+        skipping = live < rows
+        if skipping:
+            LANE_STEPS["skipped"] += (rows - live) * check_freq
+            if live <= _sms(active.device) < rows:
+                LANE_STEPS["one_wave"] += check_freq
+        with solver.live_rows(active if skipping else None):
+            stepped, _ = solver.run(carry.state, oracle_params, check_freq, noise)
         state = tree_where(active, stepped, carry.state)
         iterations = torch.where(active, carry.iterations + check_freq, carry.iterations)
         path = solver.full_trajectory(state)

@@ -7,6 +7,7 @@ decision at every check and its final selection; the shortcut pass on
 fixed pairs; and the restart selection of `run_grid_suite` on constructed
 lane results. The solver is the corridor configuration's
 (`nfbench/configs/corridor-benchmr.json`) at N=24, hidden 32."""
+import contextlib
 import importlib.util
 import json
 import pathlib
@@ -192,6 +193,9 @@ class MovingSolver:
 
     def full_trajectory(self, state):
         return torch.cat([state.start[:, None], state.trajectory, state.goal[:, None]], dim=1)
+
+    def live_rows(self, live):
+        return contextlib.nullcontext()  # no field kernels to skip
 
 
 def wall_world():

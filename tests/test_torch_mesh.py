@@ -17,6 +17,7 @@ Small solver (N=12, K=12, R=4, hidden 16), as tests/test_torch_batch_planner.py.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import pathlib
 import subprocess
 import sys
@@ -136,6 +137,9 @@ class DescendingSolver:
 
     def full_trajectory(self, state):
         return torch.cat([state.start[:, None], state.trajectory, state.goal[:, None]], dim=1)
+
+    def live_rows(self, live):
+        return contextlib.nullcontext()  # no field kernels to skip
 
 
 def descending(rows: slice) -> Descending:

@@ -5,6 +5,7 @@ program store, on the CPU: `run_grid_suite` records `suite` and its parts
 the tracked loop counts the lane-steps it computes and those of problems
 still active with its one host read per chunk; `aot_or_compile` counts its
 captures and not the programs it takes from the store."""
+import contextlib
 from typing import NamedTuple
 
 import numpy as np
@@ -90,13 +91,18 @@ class MovingSolver:
     def full_trajectory(self, state):
         return torch.cat([state.start[:, None], state.trajectory, state.goal[:, None]], dim=1)
 
+    def live_rows(self, live):
+        return contextlib.nullcontext()  # no field kernels to skip
+
 
 def test_the_tracked_loop_counts_its_lane_steps_with_one_read_a_chunk():
     """In an empty world, a path that stays put stops at the first check
     past min_iterations that does not improve (4 chunks), one that
     straightens improves at every check and runs all 10: the loop computes
-    10 chunks of both, and the active lanes' steps are 4 + 10 chunks. Each
-    pass of the loop reads the card once (a `sync` span): 11 reads."""
+    10 chunks of both, and the active lanes' steps are 4 + 10 chunks; the
+    6 chunks after the first stop run it under live rows, skipping its row
+    (no card, so no chunk counts as one wave). Each pass of the loop reads
+    the card once (a `sync` span): 11 reads."""
     n = 6
     bump = torch.sin(torch.linspace(0, np.pi, n + 2)[1:-1])
     traj = torch.zeros((2, n, 3))
@@ -115,7 +121,8 @@ def test_the_tracked_loop_counts_its_lane_steps_with_one_read_a_chunk():
         result = run_with_tracking(MovingSolver(), state, oracle, "noise", 500, 100, 50)
     assert result.iterations.tolist() == [200, 500]
     assert {k: n - before[k] for k, n in tracking.LANE_STEPS.items()} == {
-        "computed": 10 * 2 * 50, "active": (4 + 10) * 50}
+        "computed": 10 * 2 * 50, "active": (4 + 10) * 50, "skipped": 6 * 1 * 50,
+        "one_wave": 0}
     assert [r.name for r in profiling.spans()].count("sync") == 11
 
 

@@ -8,6 +8,7 @@ car scene's rectangle oracle then decides feasibility as the paths bend
 through a wall and out again. The port's own solver is then run on a small
 car scene (N=20, K=20, R=4, hidden 16, B=4).
 """
+import contextlib
 from typing import NamedTuple
 
 import jax
@@ -87,6 +88,9 @@ class MovingSolver:
 
     def full_trajectory(self, state):
         return torch.cat([state.start[:, None], state.trajectory, state.goal[:, None]], dim=1)
+
+    def live_rows(self, live):
+        return contextlib.nullcontext()  # no field kernels to skip
 
 
 def moving_paths():
